@@ -12,3 +12,6 @@ if _SRC not in sys.path:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA Hopper card (the port's CUDA "
+        "kernels); skips with a reason without one")
