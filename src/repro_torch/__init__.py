@@ -3,9 +3,11 @@
 The JAX package ``repro`` is the reference; this package mirrors its module
 names (``repro_torch.core.bcrs`` <-> ``repro.core.bcrs`` and so on) and
 imports neither ``jax`` nor anything of ``repro``. Entry points run on
-``device="cuda"`` unless the caller passes ``device="cpu"``; the two Pallas
-kernels of the main path are hand-written CUDA C++ for Hopper
-(``csrc/``), built at first use by ``repro_torch.kernels.build``.
+``device="cuda"`` unless the caller passes ``device="cpu"``; the five Pallas
+kernels of the ported paths (the fused round's ``threshold_find`` and
+``fused_merge``; the block Top-K route's ``block_topk``, ``overlap_combine``
+and ``ef_update``) are hand-written CUDA C++ for Hopper (``csrc/``), built at
+first use by ``repro_torch.kernels.build``.
 """
 import torch
 

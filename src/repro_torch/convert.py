@@ -8,10 +8,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def params_to_torch(params: Mapping, device="cpu") -> Dict[str, torch.Tensor]:
+
+def params_to_torch(params: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
     """dict of arrays (numpy, or anything ``np.asarray`` takes, or tensors)
-    -> dict of contiguous f32 tensors on ``device``, same keys and shapes."""
+    -> dict of contiguous f32 tensors on ``device`` (the card unless the
+    caller asks for the CPU), same keys and shapes."""
+    device = resolve_device(device)
     out = {}
     for key, value in params.items():
         if isinstance(value, torch.Tensor):

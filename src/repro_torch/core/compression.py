@@ -1,6 +1,7 @@
 """Update compressors (torch port of ``repro.core.compression``): exact
-traced-k Top-K by bit-pattern bisection, its batched and error-feedback
-forms, and the flat <-> dict-of-tensor helpers.
+global Top-K, block Top-K (exact per block, or the ``block_topk`` kernel),
+exact traced-k Top-K by bit-pattern bisection, their batched and
+error-feedback forms, and the flat <-> dict-of-tensor helpers.
 
 The dense-masked representation (values kept, others zero + bool mask) is
 the reference's. Bit patterns of ``|x|`` are compared on the ``int32`` view:
@@ -58,6 +59,49 @@ def magnitude_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- top-k
+def _flushed_magnitude(u: torch.Tensor) -> torch.Tensor:
+    """``|u|`` in f32 with denormals read as zero. The reference's exact
+    routes compare ``|u| >= threshold`` on platforms that treat denormal
+    operands as zero (XLA on the CPU, the TPU); flushing the magnitudes
+    first gives the same masks (an all-denormal row keeps everything)."""
+    mag = torch.abs(u.to(torch.float32))
+    return torch.where(mag < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(mag), mag)
+
+
+def _topk_mask(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact per-row Top-K mask of ``mag`` [..., n]: ``mag >= k-th
+    largest`` (ties kept; a NaN counts as the largest, as in
+    ``lax.top_k``, and is itself never kept)."""
+    thresh = torch.topk(mag, k, dim=-1).values[..., -1:]
+    return mag >= thresh
+
+
+def topk_compress(u: torch.Tensor, cr: float) -> Compressed:
+    """Exact global magnitude Top-K of a flat ``u`` [n] at the static ratio
+    ``cr`` (ties kept)."""
+    mask = _topk_mask(_flushed_magnitude(u), k_for_ratio(u.shape[0], cr))
+    return Compressed(torch.where(mask, u, torch.zeros_like(u)), mask)
+
+
+def block_topk_compress(u: torch.Tensor, cr: float, block: int = 8192,
+                        use_kernel="auto") -> Compressed:
+    """Per-block magnitude Top-K of a flat ``u`` [n]: zero-padded to a block
+    multiple, each ``block``-wide tile keeps its top ``k_for_ratio(block,
+    cr)``. The kernel route (``use_kernel`` resolved for ``u``'s device) is
+    ``ops.block_topk`` — the reference kernel's value bisection, which
+    differs from this exact selection only on NaN, inf, or a dynamic range
+    above 2^40 inside one block."""
+    if resolve_use_kernel(use_kernel, u.device):
+        from repro_torch.kernels import ops as kops
+        return kops.block_topk(u, cr, block=block)
+    n = u.shape[0]
+    ub = torch.nn.functional.pad(u, (0, (-n) % block)).reshape(-1, block)
+    mask = _topk_mask(_flushed_magnitude(ub), k_for_ratio(block, cr))
+    vals = torch.where(mask, ub, torch.zeros_like(ub))
+    return Compressed(vals.reshape(-1)[:n], mask.reshape(-1)[:n])
+
+
 def topk_compress_dynamic(u: torch.Tensor, k) -> Compressed:
     """Top-K of each row of ``u`` [..., n] at per-row retained counts ``k``
     ([...], or a scalar): the reference's 32-halving bisection on the f32
@@ -92,6 +136,20 @@ def topk_compress_batch(updates: torch.Tensor, ks: torch.Tensor,
     return topk_compress_dynamic(updates, ks)
 
 
+def block_topk_compress_batch(updates: torch.Tensor, ks_block: torch.Tensor,
+                              block: int = 8192) -> Compressed:
+    """Per-row blockwise Top-K at traced counts: client ``i`` keeps its top
+    ``ks_block[i]`` entries of every ``block``-wide tile of its zero-padded
+    row (the exact bisection of ``topk_compress_dynamic``)."""
+    c, n = updates.shape
+    ub = torch.nn.functional.pad(updates, (0, (-n) % block)).reshape(
+        c, -1, block)
+    ks = torch.as_tensor(ks_block, device=updates.device).reshape(c, 1)
+    comp = topk_compress_dynamic(ub, ks.expand(c, ub.shape[1]))
+    return Compressed(comp.values.reshape(c, -1)[:, :n],
+                      comp.mask.reshape(c, -1)[:, :n])
+
+
 def ef_compress_batch(residuals: torch.Tensor, updates: torch.Tensor,
                       ks: torch.Tensor,
                       compress_batch: Callable = topk_compress_batch
@@ -101,4 +159,14 @@ def ef_compress_batch(residuals: torch.Tensor, updates: torch.Tensor,
     arithmetic, elementwise bit-exact)."""
     corrected = residuals + updates
     comp = compress_batch(corrected, ks)
+    return comp, corrected - comp.values
+
+
+def ef_compress(residual: torch.Tensor, u: torch.Tensor, cr: float,
+                compress: Callable = topk_compress
+                ) -> Tuple[Compressed, torch.Tensor]:
+    """EF-TopK (EFSGD) for one client: compress ``residual + u`` at ``cr``
+    and keep what was not sent. Returns (compressed, new_residual)."""
+    corrected = residual + u
+    comp = compress(corrected, cr)
     return comp, corrected - comp.values

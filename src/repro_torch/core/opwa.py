@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.compression import resolve_use_kernel
+
 
 def overlap_counts(masks: torch.Tensor) -> torch.Tensor:
     """masks: bool/int [K, n] (K clients) -> int32 counts [n]."""
@@ -32,10 +34,15 @@ def weighted_sum(coeffs: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
 
 
 def opwa_aggregate(updates: torch.Tensor, masks: torch.Tensor,
-                   coeffs: torch.Tensor, gamma: float,
-                   d: int = 1) -> torch.Tensor:
+                   coeffs: torch.Tensor, gamma: float, d: int = 1,
+                   use_kernel="auto") -> torch.Tensor:
     """OPWA aggregation of dense-masked client updates [K, n] with their
-    masks and coefficients p'_i [K]: ``M ⊙ Σ_i p'_i u_i`` [n]."""
+    masks and coefficients p'_i [K]: ``M ⊙ Σ_i p'_i u_i`` [n]. With
+    ``use_kernel`` resolved true for the updates' device, flat ``[K, n]``
+    inputs go through the ``overlap_combine`` kernel (one pass)."""
+    if resolve_use_kernel(use_kernel, updates.device) and updates.dim() == 2:
+        from repro_torch.kernels import ops as kops
+        return kops.overlap_combine(updates, masks, coeffs, gamma, d)
     m = opwa_mask(overlap_counts(masks), gamma, d)
     return m * weighted_sum(coeffs, updates)
 
@@ -62,4 +69,4 @@ def opwa_aggregate_traced_k(updates: torch.Tensor, ks: torch.Tensor,
     if active is not None:
         vals = vals * active[:, None]
         mask = mask & active[:, None]
-    return opwa_aggregate(vals, mask, coeffs, gamma, d)
+    return opwa_aggregate(vals, mask, coeffs, gamma, d, use_kernel=False)

@@ -2,14 +2,17 @@
 half of ``repro.fed.engine``).
 
   * ``ClientUpdateSpec`` / ``spec_for`` — static description of the client
-    update pipeline (strategy, kernel routing, OPWA constants);
+    update pipeline (strategy, global or block Top-K, kernel routing, OPWA
+    constants);
   * ``make_masked_local_trainer`` — local SGD for a whole cohort at once,
     clients stacked on a leading ``[C, ...]`` axis, padded steps exact
     no-ops;
   * ``aggregate_updates`` — [C, n] stacked updates -> traced-k Top-K, EF,
     codec and the OPWA / weighted merge. With kernels on (CUDA tensors) the
     whole pipeline is the two Hopper kernels ``threshold_find`` +
-    ``fused_merge``; the plain path is the reference's jnp path.
+    ``fused_merge`` (global Top-K) or the traced-k block compressor and the
+    ``overlap_combine`` kernel (block Top-K); the plain path is the
+    reference's jnp path.
 
 Everything strategy-shaped is read from the capability record; this module
 never matches strategy names.
@@ -34,6 +37,9 @@ class ClientUpdateSpec:
     quantities (ks, weights, residuals) stay arguments of the functions
     below."""
     strategy: str = "fedavg"
+    cr: float = 0.1                # static CR* (the reference's field)
+    block_topk: bool = False
+    block_size: int = 8192
     gamma: float = 5.0
     overlap_d: int = 1
     use_kernel: bool = False       # resolved bool (never "auto")
@@ -52,26 +58,34 @@ class ClientUpdateSpec:
     @property
     def use_megakernel(self) -> bool:
         # the two-kernel pipeline serves every global-top-k strategy at
-        # per-client ks; codec strategies join iff they registered a
-        # kernel_codec; dense strategies stay a single weighted sum
-        return (self.use_kernel and self.strat.megakernel
-                and self.strat.compresses)
+        # per-client ks; block configs keep the traced-k block compressor
+        # (per-block thresholds); codec strategies join iff they registered
+        # a kernel_codec; dense strategies stay a single weighted sum
+        return (self.use_kernel and not self.block_topk
+                and self.strat.megakernel and self.strat.compresses)
 
 
 def spec_for(acfg, device) -> ClientUpdateSpec:
     """AggregationConfig -> ClientUpdateSpec, with ``use_kernel`` resolved
     for ``device`` ("auto": kernels on CUDA, plain path on the CPU)."""
     return ClientUpdateSpec(
-        strategy=acfg.strategy, gamma=acfg.gamma,
+        strategy=acfg.strategy, cr=acfg.cr, block_topk=acfg.block_topk,
+        block_size=acfg.block_size, gamma=acfg.gamma,
         overlap_d=acfg.overlap_d,
         use_kernel=comp.resolve_use_kernel(acfg.use_kernel, device))
 
 
 def compress_batch_fn(spec: ClientUpdateSpec) -> Callable:
     """Batched traced-k compressor for the spec: [C, n], ks [C] ->
-    Compressed. A registered ``value_codec`` dequantizes the survivors, so
-    downstream EF/merge code needs no codec branch."""
-    base = comp.topk_compress_batch
+    Compressed (per block of ``block_size`` in block mode). A registered
+    ``value_codec`` dequantizes the survivors, so downstream EF/merge code
+    needs no codec branch."""
+    if spec.block_topk:
+        def base(u, ks):
+            return comp.block_topk_compress_batch(u, ks,
+                                                  block=spec.block_size)
+    else:
+        base = comp.topk_compress_batch
     codec = spec.strat.value_codec
     if codec is None:
         return base
@@ -221,7 +235,8 @@ def aggregate_updates(spec: ClientUpdateSpec, updates: torch.Tensor,
 
     if strat.overlap_weighted:
         agg = opwa_mod.opwa_aggregate(vals, mask, w, spec.gamma,
-                                      spec.overlap_d)
+                                      spec.overlap_d,
+                                      use_kernel=spec.use_kernel)
     else:
         agg = opwa_mod.weighted_sum(w, vals)
     return agg, new_res

@@ -1,9 +1,14 @@
-"""FL server for the fused round (torch port of ``repro.fed.server``).
+"""FL server (torch port of ``repro.fed.server``).
 
 Holds the global model as one flat f32 buffer on the device (``params`` are
-views into it), the per-client EF residuals, and the time accumulator. Each
-``round_fused`` runs one ``fed.round_step`` program. The reference's legacy
-eager ``round`` is not ported yet (ROADMAP queue 1 item 4).
+views into it), the per-client EF residuals, and the time accumulator. Two
+round paths share that state and the host BCRS schedule:
+
+  * ``round`` — the legacy eager engine: flattens per-client deltas,
+    compresses them client by client (``aggregation.aggregate`` with
+    ``use_loop=True``; the ``block_topk`` and ``overlap_combine`` kernels on
+    the card) and applies ``w <- w - eta * agg``;
+  * ``round_fused`` — one ``fed.round_step`` program for the whole round.
 """
 from __future__ import annotations
 
@@ -61,6 +66,30 @@ class FLServer:
                                         wire.cr_eff(crs, self.n_params))
         self.times.add(rt)
         info["round_time"] = rt
+
+    # ------------------------------------------------------------------
+    def round(self, client_deltas: List[Dict[str, torch.Tensor]],
+              data_fracs: np.ndarray, selected: np.ndarray) -> dict:
+        """One legacy round: ``client_deltas`` is a list of per-client
+        delta dicts (w_t - w_i), ``selected`` the client indices (for the
+        link lookup). Residuals reset whenever the cohort size changes."""
+        flat_updates = torch.stack([flatten_tree(d) for d in client_deltas])
+        links = self._selected_links(selected)
+        residuals = None
+        if self.acfg.strat.needs_residuals:
+            if (self.residuals is None
+                    or self.residuals.shape[0] != flat_updates.shape[0]):
+                self.residuals = torch.zeros_like(flat_updates)
+            residuals = self.residuals
+        agg, info, new_res = agg_mod.aggregate(
+            flat_updates, data_fracs, self.acfg, links=links,
+            v_bytes=self.v_bytes, residuals=residuals, use_loop=True)
+        if self.acfg.strat.needs_residuals:
+            self.residuals = new_res
+        # in place, so self.params (views of self.flat) follow
+        self.flat.sub_(self.eta * agg)
+        self._account_time(info, links)
+        return info
 
     # ------------------------------------------------------------------
     def init_fused(self, loss_fn: Callable, lr: float,

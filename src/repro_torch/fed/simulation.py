@@ -1,5 +1,5 @@
 """End-to-end FL simulation harness (torch port of ``repro.fed.simulation``,
-``engine="fused"``).
+``engine="fused"`` and ``engine="legacy"``).
 
 Same protocol as the reference on the same synthetic Dirichlet-partitioned
 data: for each round, sample C·N clients -> E local epochs of SGD on the
@@ -24,9 +24,12 @@ from repro_torch import convert
 from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import bcrs as bcrs_mod
 from repro_torch.core import cost_model
+from repro_torch.core.compression import flatten_tree, topk_compress
+from repro_torch.core.opwa import overlap_counts
 from repro_torch.data import (build_client_datasets, data_fractions,
                               dirichlet_partition, synthetic_classification)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.fed.client import make_local_trainer
 from repro_torch.fed.server import FLServer
 from repro_torch.ft import (FailureInjector, StragglerPolicy, arrivals,
                             over_select)
@@ -34,10 +37,11 @@ from repro_torch.ft import (FailureInjector, StragglerPolicy, arrivals,
 
 # --------------------------------------------------------------- small model
 def mlp_init(generator: torch.Generator, dim: int, n_classes: int,
-             hidden: int = 128, device="cpu") -> Dict[str, torch.Tensor]:
+             hidden: int = 128, device="cuda") -> Dict[str, torch.Tensor]:
     """The reference's init scheme (normal weights scaled by 1/sqrt(fan-in),
-    zero biases) drawn from a ``torch.Generator`` (a different stream from
-    ``jax.random``)."""
+    zero biases) drawn from a CPU ``torch.Generator`` (a different stream
+    from ``jax.random``) and placed on ``device``."""
+    device = resolve_device(device)
     s1, s2 = 1 / np.sqrt(dim), 1 / np.sqrt(hidden)
 
     def normal(shape, scale):
@@ -68,7 +72,8 @@ def _logits(params, x):
 
 def mlp_loss(params, batch):
     """Mean cross-entropy per client: params [C, ...], batch x [C, B, d],
-    y [C, B] -> (losses [C], logits [C, B, K])."""
+    y [C, B] -> (losses [C], logits [C, B, K]); for one client's unbatched
+    params and x [B, d], y [B] -> (loss [], logits [B, K])."""
     logits = _logits(params, batch["x"])
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, batch["y"].to(torch.int64).unsqueeze(-1))
@@ -262,21 +267,52 @@ def _overlap_hist(counts: np.ndarray, cohort_size: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------------ run_fl
+def _legacy_round(server: FLServer, local_train, clients, selected, fr,
+                  sim: FLSimConfig, steps_by_client, rng, dev,
+                  want_overlap: bool) -> dict:
+    """One legacy round: each selected client trains on its own batches,
+    drawn here in cohort order (the reference's rng order), then
+    ``FLServer.round``. The Fig. 4 round adds the overlap counts of the
+    clients' exact global Top-K masks."""
+    deltas, losses = [], []
+    for c in selected:
+        xs, ys = clients[c].fixed_batches(sim.batch_size,
+                                          int(steps_by_client[c]), rng)
+        delta, loss = local_train(
+            server.params, {"x": torch.as_tensor(xs, device=dev),
+                            "y": torch.as_tensor(ys, device=dev,
+                                                 dtype=torch.int64)})
+        deltas.append(delta)
+        losses.append(loss)
+    info = server.round(deltas, fr, selected)
+    info["loss"] = torch.stack(losses).mean()
+    if want_overlap:
+        crs = info.get("crs", np.full(len(deltas), server.acfg.cr))
+        masks = torch.stack([topk_compress(flatten_tree(d), float(cr)).mask
+                             for d, cr in zip(deltas, crs)])
+        info["overlap_counts"] = overlap_counts(masks)
+    return info
+
+
 def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
            failure: Optional[FailureInjector] = None,
            collect_overlap: bool = False, engine: str = "fused",
            straggler: Optional[StragglerPolicy] = None,
            device="cuda", init_params=None) -> FLSimResult:
-    """Run the simulation with the fused round engine (one
-    ``fed.round_step`` program per round) on ``device`` ("cuda" by default;
-    without CUDA this raises — pass ``device="cpu"`` for the CPU).
-    ``init_params`` starts from given weights instead of the port's seeded
-    init. The other engines of the reference are not ported yet."""
-    if engine != "fused":
+    """Run the simulation on ``device`` ("cuda" by default; without CUDA
+    this raises — pass ``device="cpu"`` for the CPU). ``engine`` is
+    "fused" (one ``fed.round_step`` program per round, the next round's
+    batches staged while it runs) or "legacy" (per-client local SGD and the
+    per-client compression loop of ``FLServer.round``; batches drawn as each
+    client trains, never ahead, so the shared rng keeps the reference's
+    order). ``init_params`` starts from given weights instead of the port's
+    seeded init. ``FLSimResult.losses`` holds each round's mean over the
+    cohort of the clients' last local losses."""
+    if engine not in ("fused", "legacy"):
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: only 'fused' is. The "
-            "legacy engine is ROADMAP queue 1 item 4, 'scan' item 5, "
-            "'pop_scan'/'population' item 6, 'async' item 7")
+            f"engine={engine!r} is not ported yet: 'fused' and 'legacy' "
+            "are. 'scan' is ROADMAP queue 1 item 3, 'pop_scan'/'population' "
+            "item 4, 'async' item 6")
     dev = resolve_device(device)
     (rng, clients, parts, fracs_all,
      (x_train, y_train, x_test, y_test), server) = _setup_sim(
@@ -284,7 +320,10 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     links = server.links
     steps_by_client = _steps_by_client(clients, sim)
     s_max = int(steps_by_client.max())
-    server.init_fused(mlp_loss, sim.lr, collect_overlap=collect_overlap)
+    if engine == "fused":
+        server.init_fused(mlp_loss, sim.lr, collect_overlap=collect_overlap)
+    else:
+        local_train = make_local_trainer(mlp_loss, sim.lr)
     xt = torch.as_tensor(x_test, device=dev)
     yt = torch.as_tensor(y_test, device=dev, dtype=torch.int64)
 
@@ -292,10 +331,12 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     overlap_hists = []
 
     def round_stream():
-        """Per-round plans with the stacked client batches staged to the
-        device. The consumer pulls round r+1 right after dispatching round
-        r, so the host draws and copies the next batches while the device
-        still runs the current round (double-buffered staging)."""
+        """Per-round plans. For the fused engine the stacked client batches
+        are staged to the device here: the consumer pulls round r+1 right
+        after dispatching round r, so the host draws and copies the next
+        batches while the device still runs the current round
+        (double-buffered staging). The legacy engine draws its batches in
+        the consumer, so nothing is drawn ahead."""
         for rnd in range(sim.rounds):
             plan = plan_cohort(rnd, rng, n_clients=sim.n_clients,
                                participation=sim.participation,
@@ -305,23 +346,31 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
             if plan is None:
                 continue
             selected, fr = plan
-            batches, mask = _stack_client_batches(
-                clients, selected, sim, steps_by_client, s_max, rng)
-            staged = ({"x": torch.as_tensor(batches["x"], device=dev),
-                       "y": torch.as_tensor(batches["y"], device=dev,
-                                            dtype=torch.int64)},
-                      torch.as_tensor(mask, device=dev))
+            staged = None
+            if engine == "fused":
+                batches, mask = _stack_client_batches(
+                    clients, selected, sim, steps_by_client, s_max, rng)
+                staged = ({"x": torch.as_tensor(batches["x"], device=dev),
+                           "y": torch.as_tensor(batches["y"], device=dev,
+                                                dtype=torch.int64)},
+                          torch.as_tensor(mask, device=dev))
             yield rnd, selected, fr, staged
 
     stream = round_stream()
     item = next(stream, None)
     while item is not None:
-        rnd, selected, fr, (batches, step_mask) = item
+        rnd, selected, fr, staged = item
         t0 = time.perf_counter()
         is_overlap_round = collect_overlap and rnd == sim.rounds // 2
-        info = server.round_fused(batches, step_mask, fr, selected,
-                                  want_overlap=is_overlap_round)
-        item = next(stream, None)      # stage the next round meanwhile
+        if engine == "fused":
+            batches, step_mask = staged
+            info = server.round_fused(batches, step_mask, fr, selected,
+                                      want_overlap=is_overlap_round)
+        else:
+            info = _legacy_round(server, local_train, clients, selected, fr,
+                                 sim, steps_by_client, rng, dev,
+                                 is_overlap_round)
+        item = next(stream, None)      # fused: stage the next round meanwhile
         if is_overlap_round:
             overlap_hists.append(_overlap_hist(
                 info["overlap_counts"].cpu().numpy(), len(selected)))

@@ -4,9 +4,10 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. Builds happen at first use, from the sources in this
 checkout only, into ``<repo>/build/repro_torch/`` (listed in .gitignore).
-The library name carries a hash of the source and the flags, so a stale
-build is never loaded. ``build()`` compiles several sources at once, one
-``nvcc`` process each, all started together.
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale build is never loaded.
+``build()`` compiles several sources at once, one ``nvcc`` process each,
+all started together.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("threshold_find", "fused_merge")
+KERNELS = ("threshold_find", "fused_merge", "overlap_combine", "block_topk",
+           "ef_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CAPABILITY = (9, 0)
@@ -38,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed on its content."""
+    """Where the build of ``csrc/<name>.cu`` lives, keyed on its content
+    and that of every header in ``csrc/``."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,9 +1,12 @@
-"""Flat-space wrappers over the two kernels of the main path (torch port of
-``repro.kernels.ops.topk_thresholds`` / ``megakernel_aggregate``).
+"""Flat-space wrappers over the Hopper kernels (torch port of
+``repro.kernels.ops``: ``block_topk``, ``overlap_combine``,
+``topk_thresholds``, ``megakernel_aggregate``, ``ef_topk_update``).
 
-The kernels mask their ragged edge themselves, so no padding happens here.
-Each wrapper goes to the Hopper kernels for CUDA tensors and to their plain
-twins for CPU tensors (``threshold_find`` / ``fused_merge`` decide by device).
+The kernels mask their ragged edge themselves, so the only padding here is
+the reference's zero-padding of a flat vector to a multiple of ``block``
+(block selection counts those zeros); rows are never padded. Each wrapper
+goes to the Hopper kernels for CUDA tensors and to their plain twins for CPU
+tensors (the kernel modules decide by device).
 """
 from __future__ import annotations
 
@@ -11,13 +14,47 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.compression import Compressed, k_for_ratio
 from repro_torch.core.strategies import CODEC_LEVELS, quantization_scale
+from repro_torch.kernels.block_topk import block_topk as block_topk_rows
+from repro_torch.kernels.ef_update import ef_update
 from repro_torch.kernels.fused_merge import fused_merge
+from repro_torch.kernels.overlap_combine import \
+    overlap_combine as overlap_combine_rows
 from repro_torch.kernels.threshold_find import threshold_find
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
+
+
+def _blocks(u: torch.Tensor, block: int) -> torch.Tensor:
+    """Flat [n] -> [nb, block] f32 rows, zero-padded to a block multiple."""
+    u = _f32(u.reshape(-1))
+    pad = (-u.shape[0]) % block
+    if pad:
+        u = torch.nn.functional.pad(u, (0, pad))
+    return u.view(-1, block)
+
+
+def block_topk(u: torch.Tensor, cr: float, block: int = 8192) -> Compressed:
+    """Flat vector -> block Top-K ``Compressed`` through the ``block_topk``
+    kernel: each ``block``-wide tile keeps ``k_for_ratio(block, cr)``
+    entries by the kernel's value bisection (ties kept)."""
+    n = u.numel()
+    vals, mask = block_topk_rows(_blocks(u, block), k_for_ratio(block, cr))
+    return Compressed(vals.reshape(-1)[:n], mask.reshape(-1)[:n] != 0)
+
+
+def overlap_combine(vals: torch.Tensor, masks: torch.Tensor,
+                    coeffs: torch.Tensor, gamma: float, d: int
+                    ) -> torch.Tensor:
+    """[K, n] masked updates + [K, n] masks + [K] coeffs -> the
+    OPWA-aggregated [n] through the ``overlap_combine`` kernel."""
+    m = masks.contiguous()
+    m = m.view(torch.int8) if m.dtype == torch.bool else m.to(torch.int8)
+    return overlap_combine_rows(_f32(vals), m, _f32(coeffs.to(vals.device)),
+                                float(gamma), int(d))
 
 
 def topk_thresholds(updates: torch.Tensor, ks: torch.Tensor,
@@ -65,3 +102,14 @@ def megakernel_aggregate(updates: torch.Tensor, ks: torch.Tensor,
     if residuals is None:
         return out, None
     return out
+
+
+def ef_topk_update(g: torch.Tensor, residual: torch.Tensor, cr: float,
+                   block: int = 8192):
+    """Fused EF step on flat vectors through the ``ef_update`` kernel ->
+    ``(send [n], new_residual [n])``, per ``block``-wide tile at
+    ``k_for_ratio(block, cr)``."""
+    n = g.numel()
+    send, res = ef_update(_blocks(g, block), _blocks(residual, block),
+                          k_for_ratio(block, cr))
+    return send.reshape(-1)[:n], res.reshape(-1)[:n]

@@ -1,6 +1,6 @@
 """The port's Hopper kernels on the card: each kernel bit for bit against
-its plain twin, the device-based dispatch of the wrappers, and a short
-``run_fl`` through the kernels.
+its plain twin, the device-based dispatch of the wrappers, and short
+``run_fl`` runs (fused and legacy engines) through the kernels.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
 (the kernels are CUDA C++; there is no interpret mode). This file imports
@@ -16,8 +16,11 @@ from repro_torch.core.aggregation import AggregationConfig
 from repro_torch.core.strategies import CODEC_LEVELS, quantization_scale
 from repro_torch.fed.engine import ClientUpdateSpec, aggregate_updates
 from repro_torch.fed.simulation import FLSimConfig, run_fl
+from repro_torch.kernels import block_topk as bt
+from repro_torch.kernels import ef_update as eu
 from repro_torch.kernels import fused_merge as fm
 from repro_torch.kernels import ops
+from repro_torch.kernels import overlap_combine as oc
 from repro_torch.kernels import threshold_find as tf
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +102,59 @@ def test_short_run_fl_on_the_card(card):
                  AggregationConfig(strategy="bcrs_opwa"))
     assert tf.threshold_find.launches == t0 + 2
     assert all(math.isfinite(a) for _, a in res.accuracies)
+
+
+def _rows(nb, block, device, seed=0):
+    """Rows with a zero row, ties, NaN, inf and a denormal row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(nb, block, device=device, generator=g)
+    x[0] = 0.0
+    x[1, : block // 2] = x[1, 0]
+    x[2, 3] = float("nan")
+    x[3, 4] = float("inf")
+    x[4] *= 1e-40
+    return x
+
+
+@pytest.mark.parametrize("nb,block", [(17, 8192), (5, 1000), (6, 16384)])
+def test_block_kernels_bitwise_vs_twins(card, nb, block):
+    x = _rows(nb, block, card)
+    e = 0.3 * _rows(nb, block, card, seed=1).nan_to_num(0.0, 0.0, 0.0)
+    for k in (1, max(1, block // 10), block):
+        v, m = bt.block_topk(x, k)
+        pv, pm = bt.block_topk_plain(x, k)
+        assert _same_bits(v, pv) and torch.equal(m, pm)
+        s, r = eu.ef_update(x, e, k)
+        ps, pr = eu.ef_update_plain(x, e, k)
+        assert _same_bits(s, ps) and _same_bits(r, pr)
+
+
+def test_block_kernels_refuse_rows_above_the_limit(card):
+    with pytest.raises(ValueError, match="block"):
+        bt.block_topk(torch.ones(2, bt.MAX_BLOCK + 1, device=card), 3)
+
+
+@pytest.mark.parametrize("c,n", [(5, 136_724), (3, 1001)])
+def test_overlap_combine_bitwise_vs_twin(card, c, n):
+    g = torch.Generator(device=card).manual_seed(c)
+    masks = torch.rand(c, n, device=card, generator=g) < 0.3
+    vals = torch.randn(c, n, device=card, generator=g) * masks
+    coeffs = torch.rand(c, device=card, generator=g) + 0.1
+    for gamma, d in ((5.0, 1), (1.0, 2)):
+        o0 = oc.overlap_combine.launches
+        got = ops.overlap_combine(vals, masks, coeffs, gamma, d)
+        assert oc.overlap_combine.launches == o0 + 1
+        want = oc.overlap_combine_plain(vals, masks.to(torch.int8), coeffs,
+                                        gamma, d)
+        assert _same_bits(got, want)
+
+
+def test_short_legacy_run_fl_on_the_card(card):
+    b0, o0 = bt.block_topk.launches, oc.overlap_combine.launches
+    res = run_fl(FLSimConfig(rounds=2, dim=32, hidden=32, n_classes=5),
+                 AggregationConfig(strategy="bcrs_opwa", block_topk=True),
+                 engine="legacy")
+    assert bt.block_topk.launches == b0 + 2 * 5     # 5 clients a round
+    assert oc.overlap_combine.launches == o0 + 2
+    assert all(math.isfinite(a) for _, a in res.accuracies)
+    assert all(math.isfinite(v) for v in res.losses)

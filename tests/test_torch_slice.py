@@ -129,7 +129,7 @@ class TestRound:
         deltas_j, loss_j = jax.vmap(train_j, in_axes=(None, 0, 0))(
             params_j, {k: jnp.asarray(v) for k, v in batches.items()},
             jnp.asarray(mask))
-        params_t = convert.params_to_torch(_np_tree(params_j))
+        params_t = convert.params_to_torch(_np_tree(params_j), "cpu")
         train_t = engine_t.make_masked_local_trainer(sim_t.mlp_loss, st.lr)
         deltas_t, loss_t = train_t(
             params_t, {"x": torch.from_numpy(batches["x"]),
@@ -158,7 +158,7 @@ class TestRound:
                        {k: jnp.asarray(v) for k, v in batches.items()},
                        jnp.asarray(mask), jnp.asarray(w), jnp.asarray(ks),
                        jnp.asarray(ks))
-        params_t = convert.params_to_torch(_np_tree(server.params))
+        params_t = convert.params_to_torch(_np_tree(server.params), "cpu")
         before = dict(rs_t.BUILD_COUNTS)
         step_t = rs_t.make_round_step(sim_t.mlp_loss, params_t, lr=st.lr,
                                       acfg=acfg_t, device="cpu")
@@ -264,7 +264,7 @@ class TestRunFL:
     def test_seeded_init_has_the_reference_layout(self):
         sim, _ = _pair()
         p_t = sim_t.mlp_init(torch.Generator().manual_seed(0), sim.dim,
-                             sim.n_classes, hidden=sim.hidden)
+                             sim.n_classes, hidden=sim.hidden, device="cpu")
         p_j = _jax_params(sim)
         assert {k: tuple(v.shape) for k, v in p_t.items()} == \
             {k: tuple(v.shape) for k, v in p_j.items()}
@@ -286,7 +286,7 @@ class TestRunFL:
                                                  use_kernel=True),
                          device="cpu")
 
-    @pytest.mark.parametrize("engine", ["legacy", "scan", "population",
+    @pytest.mark.parametrize("engine", ["pop_scan", "scan", "population",
                                         "async"])
     def test_unported_engines_raise(self, engine):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
