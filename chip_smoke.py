@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out PATH] [--profile]
 
-1. builds the five hand-written kernels (``src/repro_torch/csrc``; one nvcc
+1. builds the six hand-written kernels (``src/repro_torch/csrc``; one nvcc
    per source, started together);
 2. holds ``threshold_find`` and ``fused_merge`` bit for bit against their
    plain PyTorch twins, for every variant, at the main path's shape (C=5,
@@ -23,8 +23,20 @@
    path on the CPU for all 8 built-in strategies, and one legacy round's
    ``aggregate`` (block_topk + overlap_combine) against the exact plain
    route on the same MLP deltas;
-5. with ``--profile``, profiles 3 rounds of the fused and of the legacy
-   path (device time by kernel, idle share).
+5. the serve phase (stablelm-1.6b at full width, bf16, random weights from
+   a seed): ``flash_attention`` against its twin (within the summation-order
+   bound, plus one bf16 ULP in bf16) at the serve shape [4, 2048, 32, 64]
+   (bf16 and f32), yi-9b's heads (D = 128, kv broadcast from 4 heads), a
+   ragged S = 1000, Sq 128 x Sk 384, a non-causal case and one 32k sequence
+   of ``prefill_32k``, timed beside its twin and
+   ``F.scaled_dot_product_attention``; ``ops.flash_attention`` on layer 0's
+   own q, k, v of a 2048-token prompt against ``attention.attend`` (bf16 and
+   f32, launches counted); and ``launch.serve.generate``: a 128-token
+   prompt stepped through ``decode_step`` at B = 4, 32 greedy tokens, and
+   ``Model.prefill`` over the same prompt against the decode logits;
+6. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+   path and 3 decode steps of the serve path (device time by kernel, idle
+   share).
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -45,6 +57,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 MAIN = (5, 136_724)           # cohort x simulation-MLP parameters
 PRICED = (32, 65_536)
 LEAF = (8, 2048 * 5632)       # stablelm-1.6b MLP matrix as one [C, n] leaf
@@ -78,9 +91,10 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after two warm-ups."""
-    for _ in range(2):
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup``
+    calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -306,11 +320,12 @@ def block_parity(mods, record):
 
 
 def timing_row(kernel, shape, variant, nbytes, ops, ms, plain_ms, library,
-               library_ms):
+               library_ms, ops_per_s=F32_OPS_PER_S):
     """One timing record with its bound: the larger of bytes over the HBM
-    rate and f32 operations over the f32 rate."""
+    rate and operations over the peak rate of their type (f32 unless
+    given)."""
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_OPS_PER_S * 1e3
+    bound_ops = ops / ops_per_s * 1e3
     return dict(kernel=kernel, shape=shape, variant=variant, bytes=nbytes,
                 ops=ops,
                 bound_by="bytes" if bound_bytes >= bound_ops else "operations",
@@ -593,20 +608,17 @@ def legacy_reference_check(record):
 
 
 # -------------------------------------------------------------- profile
-def profile_path(engine, acfg):
-    """Where the device time of a path goes: ``run_fl`` (3 rounds, warm
-    process) under ``torch.profiler``; device time summed by kernel name,
-    and the busy share of the run's wall time. Reports "not measured" when
-    the profiler shows no device time."""
+def device_profile(fn, host=None):
+    """Run ``fn`` under ``torch.profiler``; returns (fn's result, wall ms,
+    device ms by kernel name as {name: (ms, calls)}; empty when the
+    profiler shows no device time). With a dict ``host``, also fills it
+    with the host's self time by op name, {name: (ms, calls)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.fed.simulation import FLSimConfig, run_fl
-    rounds = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_fl(FLSimConfig(rounds=rounds), acfg, engine=engine,
-                     device="cuda")
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -614,23 +626,413 @@ def profile_path(engine, acfg):
         # kernel events only: a CPU op's device time repeats its kernels'
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
             by_name[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
+        elif host is not None and ev.self_cpu_time_total:
+            host[ev.key] = (ev.self_cpu_time_total / 1e3, ev.count)
+    return out, wall_ms, by_name
+
+
+def busy_record(wall_ms, by_name):
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return dict(
-        engine=engine, strategy=acfg.strategy, block_topk=acfg.block_topk,
-        rounds=rounds, wall_ms_under_profiler=wall_ms,
-        wall_per_round_ms_under_profiler=[t * 1e3 for t in
-                                          res.wall_per_round],
+        wall_ms_under_profiler=wall_ms,
         device_busy_ms=busy_ms if by_name else "not measured",
         device_idle_share=(1 - busy_ms / wall_ms) if by_name
         else "not measured",
+        top_kernels=[dict(name=k[:90], device_ms=v[0], calls=v[1])
+                     for k, v in top])
+
+
+def profile_path(engine, acfg):
+    """Where the device time of a path goes: ``run_fl`` (3 rounds, warm
+    process) under ``torch.profiler``; device time summed by kernel name,
+    and the busy share of the run's wall time. Reports "not measured" when
+    the profiler shows no device time."""
+    from repro_torch.fed.simulation import FLSimConfig, run_fl
+    rounds = 3
+    res, wall_ms, by_name = device_profile(lambda: run_fl(
+        FLSimConfig(rounds=rounds), acfg, engine=engine, device="cuda"))
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    return dict(
+        busy_record(wall_ms, by_name),
+        engine=engine, strategy=acfg.strategy, block_topk=acfg.block_topk,
+        rounds=rounds,
+        wall_per_round_ms_under_profiler=[t * 1e3 for t in
+                                          res.wall_per_round],
         # against the rounds alone (setup and the first staging excluded;
         # the eval's few kernels stay in busy_ms)
         device_idle_share_of_rounds=(
             1 - busy_ms / (sum(res.wall_per_round) * 1e3)) if by_name
-        else "not measured",
-        top_kernels=[dict(name=k[:90], device_ms=v[0], calls=v[1])
-                     for k, v in top])
+        else "not measured")
+
+
+# ----------------------------------------------------------- serve phase
+SERVE_ARCH = "stablelm-1.6b"
+SERVE_BATCH = 4
+ENTRY_SEQ = 2048              # the flash entry point's prompt
+PROMPT, GEN = 128, 32         # the serve path's prompt and generated tokens
+#: |prefill - decode| on the last prompt token's logits, bf16 at full width.
+#: Both paths compute the same function and differ only in where they round
+#: to bf16 and in summation order: R = 17 roundings a layer (two norms, q, k,
+#: v, RoPE on q and k, the attention probabilities and output, wo, two
+#: residual adds, up, gate, silu, the gated product, down), at each of which
+#: the two may land on neighbouring bf16 values, a relative difference of
+#: rms at most 2^-8. Taken as independent and carried to the logits at gain
+#: ~1 (near-identity residual blocks at this init, then rms_norm and the
+#: vocab projection), they add to an rms of 2^-8 * sqrt(L * R) times the
+#: logits' rms; the largest of B * V (4e5) such differences stays below
+#: Z = 6 of those (a normal exceeds 6 sigma with probability 2e-9).
+LOGIT_R, LOGIT_Z = 17, 6.0
+
+
+def logit_tolerance(n_layers: int, logits: torch.Tensor) -> float:
+    """Z * 2^-8 * sqrt(L * R) * rms(logits): the prefill-vs-decode bound
+    (tests/test_torch_models.py holds a 4-layer bf16 model on the CPU to
+    the same formula)."""
+    rms = float(logits.float().pow(2).mean().sqrt())
+    return LOGIT_Z * 2.0 ** -8 * math.sqrt(n_layers * LOGIT_R) * rms
+
+
+#: flash kernel against twin: (label, B, Sq, Sk, H, Hkv, D, dtype, causal)
+FLASH_CASES = (
+    ("serve", 4, 2048, 2048, 32, 32, 64, torch.bfloat16, True),
+    ("serve", 4, 2048, 2048, 32, 32, 64, torch.float32, True),
+    ("yi-9b heads", 1, 2048, 2048, 32, 4, 128, torch.bfloat16, True),
+    ("ragged", 1, 1000, 1000, 2, 2, 64, torch.bfloat16, True),
+    ("ragged", 1, 1000, 1000, 2, 2, 64, torch.float32, True),
+    ("ragged", 1, 700, 1000, 2, 2, 64, torch.bfloat16, True),
+    ("top-left", 1, 128, 384, 1, 1, 64, torch.bfloat16, True),
+    ("top-left", 1, 128, 384, 1, 1, 64, torch.float32, True),
+    ("non-causal", 1, 256, 256, 2, 2, 64, torch.bfloat16, False),
+    ("non-causal", 1, 256, 256, 2, 2, 64, torch.float32, False),
+    ("32k", 1, None, None, 32, 32, 64, torch.bfloat16, True),
+)
+BLK = 128                     # ops.flash_attention's default blocks
+
+
+def heads_flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B*H, S_pad, D], zero-padded to a BLK multiple as
+    ``ops.flash_attention`` pads it."""
+    b, s, h, d = x.shape
+    t = x.transpose(1, 2).reshape(b * h, s, d)
+    return torch.nn.functional.pad(t, (0, 0, 0, (-s) % BLK)).contiguous()
+
+
+def flash_agreement(got, want, v, sk):
+    """Kernel against twin, every element. f32: within the summation-order
+    bound B = (D + Sk) * 2^-24 * max|v| plus 4 ULP of max|v| for expf (the
+    output is a convex combination of v rows, so |o| <= max|v|). bf16: each
+    side rounds its own f32 result, so within B plus one bf16 ULP of the
+    larger of the two (half an ULP each): near zero, where the f32 sum
+    cancels, B dominates and the difference can be many bf16 ULPs of the
+    value. Returns (ok, max |d|, B, the largest difference in bf16 ULPs or
+    None for f32)."""
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    bound = (got.shape[-1] + sk + 8) * 2.0 ** -24 * float(v.abs().max())
+    if got.dtype == torch.float32:
+        return err <= bound, err, bound, None
+    mag = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(mag)
+    ulp = torch.pow(2.0, (e - 8).double())      # bf16: 8 significant bits
+    ok = bool((diff <= ulp + bound).all())
+    return ok, err, bound, float((diff / ulp).max())
+
+
+def flash_case(label, b, sq, sk, h, hkv, d, dtype, causal, seed):
+    """q [B, Sq, H, D] and k, v [B, Sk, H, D] normals on the card; kv drawn
+    with Hkv heads and broadcast in ``attend``'s grouping (q head i reads kv
+    head i // (H / Hkv))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, sk, hkv, d, device="cuda", generator=g).to(dtype)
+    v = torch.randn(b, sk, hkv, d, device="cuda", generator=g).to(dtype)
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    return q, k, v
+
+
+def causal_pairs(sq, sk, causal):
+    """(query, key) pairs the mask keeps: positions aligned at the top left."""
+    if not causal:
+        return sq * sk
+    n = min(sq, sk)
+    return n * (n + 1) // 2 + max(0, sq - sk) * sk
+
+
+def flash_parity_and_timings(record):
+    """Every FLASH_CASES case, kernel against twin on the same padded
+    [BH, S, D] tensors (and, for the ragged case, ``ops.flash_attention``
+    against the sliced kernel output); the serve shapes and 32k timed:
+    kernel, twin and SDPA on the same tensors in [B, H, S, D]."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    s32k = SHAPES["prefill_32k"].seq_len
+    cases, rows, worst = [], [], 0.0
+    for seed, (label, b, sq, sk, h, hkv, d, dtype, causal) in enumerate(
+            FLASH_CASES):
+        sq, sk = sq or s32k, sk or s32k
+        q, k, v = flash_case(label, b, sq, sk, h, hkv, d, dtype, causal,
+                             400 + seed)
+        qb, kb, vb = heads_flat(q), heads_flat(k), heads_flat(v)
+        got = fa.flash_attention(qb, kb, vb, causal=causal)
+        want = fa.flash_attention_plain(qb, kb, vb, causal=causal)
+        torch.cuda.synchronize()
+        ok, err, bound, ulps = flash_agreement(got, want, vb, kb.shape[1])
+        name = f"{label} [{b}, {sq}x{sk}, {h}, {d}] {str(dtype)[6:]}" + (
+            "" if causal else " non-causal")
+        what = f"bound {bound:.3g}" + ("" if ulps is None else
+                                       f" + 1 ULP; max {ulps:.3g} bf16 ULPs")
+        check(ok, f"flash_attention {name}: max |d| {err:.3g}, {what}")
+        if dtype == torch.bfloat16:
+            # the bf16 kernel runs the f32 kernel's arithmetic on exact
+            # upcasts: it must be that kernel's output rounded to bf16
+            up = fa.flash_attention(qb.float(), kb.float(), vb.float(),
+                                    causal=causal)
+            check(torch.equal(got, up.to(torch.bfloat16)),
+                  f"flash_attention {name} == bf16(f32 kernel on upcasts)")
+            twin32 = fa.flash_attention_plain(qb.float(), kb.float(),
+                                              vb.float(), causal=causal)
+            ok32, err32, _, _ = flash_agreement(up, twin32, vb.float(),
+                                                kb.shape[1])
+            check(ok32, f"flash_attention {name} upcast to f32: max |d| "
+                        f"{err32:.3g} > bound {bound:.3g}")
+            del up, twin32
+        if label == "ragged":
+            entry = ops.flash_attention(q, k, v, causal=causal)
+            flat = got[:, :sq].reshape(b, h, sq, d).transpose(1, 2)
+            check(torch.equal(entry, flat),
+                  f"ops.flash_attention {name} == the padded kernel call")
+        worst = max(worst, err)
+        cases.append(dict(case=name, max_abs_err=err, bound=bound,
+                          **({} if ulps is None else
+                             {"max_bf16_ulps": ulps,
+                              "f32_upcast_max_abs_err": err32})))
+        print(f"[flash] {name}: max |kernel - twin| {err:.3g} ({what})"
+              + ("" if ulps is None else
+                 f"; bf16 == bf16(f32 kernel); f32 upcast max |d| "
+                 f"{err32:.3g}"))
+        if label in ("serve", "32k"):
+            big = label == "32k"
+            esize = q.element_size()
+            nbytes = 4 * b * h * sq * d * esize      # q, k, v read; o written
+            ops_n = 4 * b * h * causal_pairs(sq, sk, causal) * d
+            peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+            q4, k4, v4 = (t.view(b, h, -1, d) for t in (qb, kb, vb))
+            row = timing_row(
+                "flash_attention", label, name, nbytes, ops_n,
+                time_ms(lambda: fa.flash_attention(qb, kb, vb), 3 if big
+                        else 20, 1 if big else 2),
+                time_ms(lambda: fa.flash_attention_plain(qb, kb, vb), 1 if big
+                        else 5, 0 if big else 1),
+                "F.scaled_dot_product_attention(is_causal=True)",
+                time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), 3 if big else 20,
+                    1 if big else 2), peak)
+            rows.append(row)
+            print("[timing]", json.dumps(row))
+        del q, k, v, qb, kb, vb, got, want
+        torch.cuda.empty_cache()
+    record["flash_cases"] = cases
+    record["flash_timings"] = rows
+    return worst, rows
+
+
+def serve_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    model = Model(get_config(SERVE_ARCH), device="cuda")
+    return model, model.init(0)
+
+
+def layer0_qkv(model, params, batch, seq):
+    """Layer 0's q, k, v [B, S, H, D] (RoPE applied) for a random prompt:
+    ``rms_norm(embed_lookup(...))``, ``qkv_proj``, ``apply_rope``."""
+    from repro_torch.models.attention import qkv_proj
+    from repro_torch.models.layers import apply_rope, embed_lookup, rms_norm
+    from repro_torch.models.transformer import layer_params
+    cfg = model.cfg
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, seq)), device="cuda")
+    p0 = layer_params(params["layers"], 0)
+    with torch.no_grad():
+        h = rms_norm(embed_lookup(params["embed"]["w"], tokens), p0["ln1"],
+                     cfg.norm_eps)
+        q, k, v = qkv_proj(p0["attn"], h, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim)
+        pos = torch.arange(seq, device="cuda")
+        return (apply_rope(q, pos, cfg.rope_theta),
+                apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def flash_entry_point(kern, zero, model, params, record):
+    """``ops.flash_attention`` on the model's own layer-0 tensors (B = 4,
+    2048 tokens) against ``attention.attend`` — the reference's
+    test_matches_model_attend on the card — in bf16 and in f32, with the
+    launch counters reset just before and read just after. f32 within the
+    reference's 1e-5 (atol and rtol); bf16 within 2^-7 * max|v|: ``attend``
+    rounds its probabilities (2^-9 relative each, at most 2^-9 * max|v| on
+    the output) and both round the output to bf16 (2^-9 * |o| <=
+    2^-9 * max|v| each)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attend
+    q, k, v = layer0_qkv(model, params, SERVE_BATCH, ENTRY_SEQ)
+
+    def run():
+        return {dt: ops.flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                                        causal=True)
+                for dt in (torch.bfloat16, torch.float32)}
+
+    outs, counts = drive(kern, run)
+    check_counts(counts, dict(zero, flash_attention=2),
+                 "flash entry point on the model's tensors")
+    out = {"launches": counts, "shape": list(q.shape)}
+    for dt, f in outs.items():
+        with torch.no_grad():
+            a = attend(q.to(dt), k.to(dt), v.to(dt), causal=True)
+        diff = (f.double() - a.double()).abs()
+        if dt == torch.float32:
+            ok = bool((diff <= 1e-5 + 1e-5 * a.double().abs()).all())
+            tol = "atol = rtol = 1e-5"
+        else:
+            bound = 2.0 ** -7 * float(v.float().abs().max())
+            ok = float(diff.max()) <= bound
+            tol = f"2^-7 * max|v| = {bound:.4g}"
+        name = str(dt)[6:]
+        check(bool(torch.isfinite(f).all()) and ok,
+              f"flash entry point vs attend ({name}): max |d| "
+              f"{float(diff.max()):.3g}, {tol}")
+        out[name] = dict(max_abs_diff=float(diff.max()), tolerance=tol)
+        print(f"[flash entry] {name} {list(q.shape)}: max |flash - attend| "
+              f"{float(diff.max()):.3g} ({tol}); launches {counts}")
+    record["flash_entry_point"] = out
+    return counts
+
+
+def decode_bound_ms(model, params, batch, positions):
+    """Bytes a decode step must move at cache length ``positions`` (mean
+    over the timed steps), over the HBM rate: every weight but the
+    embedding table (of which B rows), the K and V cache up to the
+    position, the new K/V entries and the logits."""
+    cfg = model.cfg
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(t) for t in tree.values())
+        return tree.numel() * tree.element_size()
+
+    emb = params["embed"]["w"]
+    weights = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * \
+        emb.element_size()
+    kv_entry = 2 * cfg.n_layers * batch * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2                       # bf16 K and V
+    total = weights + kv_entry * (positions + 1) + batch * model.v_pad * 2
+    return total / HBM_BYTES_PER_S * 1e3, total
+
+
+def serve_path(kern, zero, model, params, record):
+    """``launch.serve.generate`` at full width: a 128-token prompt stepped
+    through ``decode_step`` at B = 4, then 32 greedy tokens, with the launch
+    counters reset just before and read just after (this path runs none of
+    the port's kernels: attention is ``attend`` / ``decode_attend``, as in
+    the reference); ``Model.prefill`` over the same prompt against the
+    decode logits after the last prompt token."""
+    from repro_torch.launch.serve import generate
+    cfg = model.cfg
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, PROMPT)), device="cuda")
+    res, counts = drive(kern, lambda: generate(model, params, prompt, GEN))
+    check_counts(counts, zero, "serve path")
+    check(res["tokens"].shape == (SERVE_BATCH, GEN), "serve: tokens shape")
+    check(bool(torch.isfinite(res["logits"]).all())
+          and bool(torch.isfinite(res["prompt_logits"]).all()),
+          "serve: finite logits")
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompt})       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf, cache = model.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(cache is None, "prefill returns no cache (dense, as the reference)")
+    dec = res["prompt_logits"][:, :cfg.vocab_size].float()
+    pre = pf[:, :cfg.vocab_size].float()
+    tol = logit_tolerance(cfg.n_layers, dec)
+    diff = float((pre - dec).abs().max())
+    check(diff <= tol, f"prefill vs decode logits: max |d| {diff:.4g} > "
+                       f"{tol:.4g}")
+    top2 = dec.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = dec.argmax(-1) == pre.argmax(-1)
+    # each logit may move by tol, so a pair can swap only within 2 * tol
+    check(bool(same[margin > 2 * tol].all()),
+          "prefill vs decode: argmax agrees where the top-2 margin exceeds "
+          "2 * tol")
+    step_ms = res["t_gen"] / (GEN - 1) * 1e3
+    bound_ms, step_bytes = decode_bound_ms(model, params, SERVE_BATCH,
+                                           PROMPT + GEN // 2)
+    out = dict(
+        arch=SERVE_ARCH, batch=SERVE_BATCH, prompt=PROMPT, gen=GEN,
+        n_params=cfg.n_params(), launches=counts,
+        stepped_prefill_ms=res["t_prefill"] * 1e3,
+        stepped_prefill_ms_per_token=res["t_prefill"] * 1e3 / PROMPT,
+        prefill_forward_ms=prefill_ms, decode_ms_per_step=step_ms,
+        tokens_per_s=SERVE_BATCH * GEN / res["t_gen"],
+        decode_bound_ms=bound_ms, decode_step_bytes=step_bytes,
+        prefill_vs_decode_max_abs=diff, logit_tol=tol,
+        logit_tol_formula="6 * 2^-8 * sqrt(L * 17) * rms(logits)",
+        argmax_agree=same.tolist(), top2_margin=margin.tolist(),
+        sample_tokens=res["tokens"][0, :16].tolist())
+    print(f"[serve] {SERVE_ARCH} B={SERVE_BATCH}: stepped prefill "
+          f"{PROMPT} tok {out['stepped_prefill_ms']:.1f} ms, "
+          f"Model.prefill {prefill_ms:.2f} ms, decode "
+          f"{step_ms:.3f} ms a step (bound {bound_ms:.3f} ms, "
+          f"{step_bytes / 1e9:.3f} GB), {out['tokens_per_s']:.1f} tok/s; "
+          f"prefill vs decode max |d| {diff:.4g} (tol {tol:.4g})")
+    record["serve"] = out
+    return out
+
+
+def profile_decode(model, params):
+    """3 decode steps at B = 4 (cache of 160, position 128) under the
+    profiler: device time by kernel and the idle share."""
+    cache = model.init_cache(SERVE_BATCH, PROMPT + GEN)
+    toks = torch.zeros(SERVE_BATCH, dtype=torch.long, device="cuda")
+
+    def steps():
+        with torch.no_grad():
+            for i in range(3):
+                model.decode_step(params, cache, toks, PROMPT + i)
+
+    steps()                                            # warm
+    host = {}
+    _, wall_ms, by_name = device_profile(steps, host)
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(busy_record(wall_ms, by_name), steps=3, batch=SERVE_BATCH,
+                kernel_launches_per_step=sum(c for _, c in by_name.values())
+                / 3,
+                top_host_ops=[dict(name=k[:60], self_host_ms=v[0], calls=v[1])
+                              for k, v in top_host])
+
+
+def serve_phase(kern, zero, record, profile):
+    """The serve phase; returns (flash's worst error, its timing rows, the
+    flash entry point's launch counts)."""
+    t0 = time.perf_counter()
+    worst, rows = flash_parity_and_timings(record)
+    model, params = serve_model()
+    counts = flash_entry_point(kern, zero, model, params, record)
+    torch.cuda.empty_cache()
+    serve_path(kern, zero, model, params, record)
+    if profile:
+        record["profile_decode"] = profile_decode(model, params)
+        print("[profile decode]", json.dumps(record["profile_decode"]))
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"[serve phase] {time.perf_counter() - t0:.1f} s")
+    return worst, rows, counts
 
 
 def main() -> int:
@@ -638,7 +1040,7 @@ def main() -> int:
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3 rounds of the fused and the legacy "
-                         "path")
+                         "path and 3 decode steps of the serve path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -649,11 +1051,12 @@ def main() -> int:
     from repro_torch.kernels import block_topk as bt
     from repro_torch.kernels import build
     from repro_torch.kernels import ef_update as eu
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_merge as fm
     from repro_torch.kernels import overlap_combine as oc
     from repro_torch.kernels import threshold_find as tf
     modules = {"threshold_find": tf, "fused_merge": fm, "overlap_combine": oc,
-               "block_topk": bt, "ef_update": eu}
+               "block_topk": bt, "ef_update": eu, "flash_attention": fa}
     kern = {name: getattr(mod, name) for name, mod in modules.items()}
     check(tuple(sorted(build.KERNELS)) == tuple(sorted(kern)),
           "chip_smoke covers every kernel that build.KERNELS lists")
@@ -676,8 +1079,6 @@ def main() -> int:
         print("[timing]", json.dumps(row))
 
     launches = run_paths(kern, record)
-    check(all(n > 0 for n in launches.values()),
-          f"every kernel launched on its path: {launches}")
     reference_check(record)
     print(f"[reference] aggregate_updates kernels vs plain path: max |d agg| "
           f"{record['reference_check_max_abs_agg_diff']:.3g}")
@@ -691,6 +1092,13 @@ def main() -> int:
                                         block_topk=True))
         print("[profile]", json.dumps(record["profile"]))
         print("[profile legacy]", json.dumps(record["profile_legacy"]))
+    flash_worst, flash_rows, flash_counts = serve_phase(
+        kern, {name: 0 for name in kern}, record, args.profile)
+    worst["flash_attention"] = flash_worst
+    for name, n in flash_counts.items():
+        launches[name] += n
+    check(all(n > 0 for n in launches.values()),
+          f"every kernel launched on its path: {launches}")
 
     # one row per kernel and shape; fused_merge's is the main path's OPWA
     main_rows = {r["kernel"]: r for r in rows if r["shape"] == "main"
@@ -714,6 +1122,23 @@ def main() -> int:
             library_ms=m["library_ms"], leaf_ms=lf["ms"],
             leaf_plain_ms=lf["plain_ms"], leaf_bound_ms=lf["bound_ms"],
             leaf_library_ms=lf["library_ms"], parity="bitwise"))
+    fl = {r["shape"]: r for r in flash_rows if "bfloat16" in r["variant"]}
+    fl32 = next(r for r in flash_rows if "float32" in r["variant"])
+    m, big = fl["serve"], fl["32k"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:53",
+        launches=launches["flash_attention"],
+        max_abs_err=worst["flash_attention"], ms=m["ms"],
+        plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"], library_ms=m["library_ms"],
+        shape=m["variant"], f32_ms=fl32["ms"], f32_plain_ms=fl32["plain_ms"],
+        f32_bound_ms=fl32["bound_ms"], f32_library_ms=fl32["library_ms"],
+        ms_32k=big["ms"], plain_ms_32k=big["plain_ms"],
+        bound_ms_32k=big["bound_ms"], library_ms_32k=big["library_ms"],
+        parity="within B = (D + Sk + 8) * 2^-24 * max|v| (f32), B + 1 ULP "
+               "(bf16); bf16 == bf16(f32 kernel on upcasts)"))
     record["kernels"] = kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

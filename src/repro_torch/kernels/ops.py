@@ -1,6 +1,7 @@
-"""Flat-space wrappers over the Hopper kernels (torch port of
-``repro.kernels.ops``: ``block_topk``, ``overlap_combine``,
-``topk_thresholds``, ``megakernel_aggregate``, ``ef_topk_update``).
+"""Wrappers over the Hopper kernels (torch port of ``repro.kernels.ops``):
+the flat-space ``block_topk``, ``overlap_combine``, ``topk_thresholds``,
+``megakernel_aggregate`` and ``ef_topk_update``, and the model-layout
+``flash_attention``.
 
 The kernels mask their ragged edge themselves, so the only padding here is
 the reference's zero-padding of a flat vector to a multiple of ``block``
@@ -18,6 +19,8 @@ from repro_torch.core.compression import Compressed, k_for_ratio
 from repro_torch.core.strategies import CODEC_LEVELS, quantization_scale
 from repro_torch.kernels.block_topk import block_topk as block_topk_rows
 from repro_torch.kernels.ef_update import ef_update
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_attention_bh
 from repro_torch.kernels.fused_merge import fused_merge
 from repro_torch.kernels.overlap_combine import \
     overlap_combine as overlap_combine_rows
@@ -113,3 +116,30 @@ def ef_topk_update(g: torch.Tensor, residual: torch.Tensor, cr: float,
     send, res = ef_update(_blocks(g, block), _blocks(residual, block),
                           k_for_ratio(block, cr))
     return send.reshape(-1)[:n], res.reshape(-1)[:n]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, blk_q: int = 128,
+                    blk_k: int = 128) -> torch.Tensor:
+    """Model-layout wrapper: q [B,S,H,D], k/v [B,S,H,D] (equal heads; GQA
+    callers broadcast kv first). Pads Sq/Sk to block multiples with zeros
+    and slices the output back, as the reference does: padded keys sit at
+    positions >= Sk, which the causal mask hides from every query position
+    below Sk (query positions >= Sk, when Sq > Sk, do see them)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qt = q.transpose(1, 2).reshape(b * h, sq, d)
+    kt = k.transpose(1, 2).reshape(b * h, sk, d)
+    vt = v.transpose(1, 2).reshape(b * h, sk, d)
+    pq, pk = (-sq) % blk_q, (-sk) % blk_k
+    if pq:
+        qt = torch.nn.functional.pad(qt, (0, 0, 0, pq))
+    if pk:
+        # non-causal callers must pad Sk themselves
+        assert causal, "non-causal flash with Sk % blk_k != 0 unsupported"
+        kt = torch.nn.functional.pad(kt, (0, 0, 0, pk))
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, pk))
+    out = flash_attention_bh(qt.contiguous(), kt.contiguous(),
+                             vt.contiguous(), causal=causal, blk_q=blk_q,
+                             blk_k=blk_k)
+    return out[:, :sq].reshape(b, h, sq, d).transpose(1, 2)

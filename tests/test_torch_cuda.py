@@ -1,6 +1,8 @@
-"""The port's Hopper kernels on the card: each kernel bit for bit against
-its plain twin, the device-based dispatch of the wrappers, and short
-``run_fl`` runs (fused and legacy engines) through the kernels.
+"""The port's Hopper kernels on the card: each FL kernel bit for bit
+against its plain twin, ``flash_attention`` within its summation-order bound
+of its twin (plus one bf16 ULP in bf16), the device-based dispatch of the
+wrappers, and short ``run_fl`` runs (fused and legacy engines) and a short
+reduced-model serve through the kernels' paths.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
 (the kernels are CUDA C++; there is no interpret mode). This file imports
@@ -18,6 +20,7 @@ from repro_torch.fed.engine import ClientUpdateSpec, aggregate_updates
 from repro_torch.fed.simulation import FLSimConfig, run_fl
 from repro_torch.kernels import block_topk as bt
 from repro_torch.kernels import ef_update as eu
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_merge as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels import overlap_combine as oc
@@ -158,3 +161,70 @@ def test_short_legacy_run_fl_on_the_card(card):
     assert oc.overlap_combine.launches == o0 + 2
     assert all(math.isfinite(a) for _, a in res.accuracies)
     assert all(math.isfinite(v) for v in res.losses)
+
+
+def _flash_close(got, want, v):
+    """Within B = (D + Sk + 8) * 2^-24 * max|v| (the summation-order bound);
+    bf16 within B plus one bf16 ULP (each side rounds its own f32 sum)."""
+    diff = (got.double() - want.double()).abs()
+    bound = (got.shape[-1] + v.shape[1] + 8) * 2.0 ** -24 * \
+        float(v.float().abs().max())
+    if got.dtype == torch.float32:
+        return float(diff.max()) <= bound
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    return bool((diff <= torch.pow(2.0, (e - 8).double()) + bound).all())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_vs_twin(card, d, dtype, causal):
+    g = torch.Generator(device=card).manual_seed(d)
+    q = torch.randn(3, 256, d, device=card, generator=g).to(dtype)
+    k = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
+    v = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
+    f0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == f0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and _flash_close(got, want, v)
+    if dtype == torch.bfloat16:       # the f32 arithmetic on exact upcasts
+        up = fa.flash_attention(q.float(), k.float(), v.float(),
+                                causal=causal)
+        assert torch.equal(got, up.to(torch.bfloat16))
+
+
+def test_flash_entry_point_ragged_and_gqa(card):
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(2, 1000, 8, 64, device=card, generator=g)
+    kv = torch.randn(2, 2, 1000, 2, 64, device=card, generator=g)
+    k, v = (t.repeat_interleave(4, dim=2) for t in kv)
+    got = ops.flash_attention(q, k, v)
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())   # the twin
+    assert got.shape == q.shape
+    assert _flash_close(got, want.to(card), v)
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(card):
+    x = torch.randn(2, 128, 48, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(x, x, x)
+    y = torch.randn(2, 128, 64, device=card)
+    with pytest.raises(ValueError, match="multiples"):
+        fa.flash_attention(y, y[:, :100].contiguous(), y[:, :100].contiguous())
+
+
+def test_short_reduced_serve_on_the_card(card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    model = Model(get_config("qwen2.5-14b").reduced())
+    params = model.init(0)
+    prompt = torch.randint(0, 256, (2, 8), device=card)
+    res = generate(model, params, prompt, 4, torch.float32)
+    assert res["tokens"].shape == (2, 4)
+    assert bool(torch.isfinite(res["logits"]).all())
+    pf, _ = model.prefill(params, {"tokens": prompt})
+    torch.testing.assert_close(pf, res["prompt_logits"], rtol=1e-4,
+                               atol=1e-4)
