@@ -27,19 +27,24 @@ def opwa_mask(counts: torch.Tensor, gamma: float, d: int = 1) -> torch.Tensor:
 
 
 def weighted_sum(coeffs: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
-    """``sum_k coeffs[k] * updates[k]`` over the client axis (the
-    reference's ``einsum("k,kn->n")``), in float32."""
-    return torch.einsum("k,kn->n", coeffs.to(torch.float32),
-                        updates.to(torch.float32))
+    """``sum_k coeffs[k] * updates[k]`` over the client axis of
+    ``[K, *shape]`` updates, in float32: the reference's
+    ``einsum("k,kn->n")`` on flat ``[K, n]``, its ``tensordot`` over the
+    first axis on any other rank."""
+    c, u = coeffs.to(torch.float32), updates.to(torch.float32)
+    if u.dim() == 2:
+        return torch.einsum("k,kn->n", c, u)
+    return torch.tensordot(c, u, dims=([0], [0]))
 
 
 def opwa_aggregate(updates: torch.Tensor, masks: torch.Tensor,
                    coeffs: torch.Tensor, gamma: float, d: int = 1,
                    use_kernel="auto") -> torch.Tensor:
-    """OPWA aggregation of dense-masked client updates [K, n] with their
-    masks and coefficients p'_i [K]: ``M ⊙ Σ_i p'_i u_i`` [n]. With
-    ``use_kernel`` resolved true for the updates' device, flat ``[K, n]``
-    inputs go through the ``overlap_combine`` kernel (one pass)."""
+    """OPWA aggregation of dense-masked client updates [K, *shape] with
+    their masks and coefficients p'_i [K]: ``M ⊙ Σ_i p'_i u_i`` [*shape]
+    (rank-agnostic, as the reference). With ``use_kernel`` resolved true for
+    the updates' device, flat ``[K, n]`` inputs go through the
+    ``overlap_combine`` kernel (one pass)."""
     if resolve_use_kernel(use_kernel, updates.device) and updates.dim() == 2:
         from repro_torch.kernels import ops as kops
         return kops.overlap_combine(updates, masks, coeffs, gamma, d)
@@ -50,14 +55,18 @@ def opwa_aggregate(updates: torch.Tensor, masks: torch.Tensor,
 def opwa_aggregate_traced_k(updates: torch.Tensor, ks: torch.Tensor,
                             coeffs: torch.Tensor, gamma: float, d: int = 1,
                             active: Optional[torch.Tensor] = None,
-                            use_kernel: bool = False) -> torch.Tensor:
+                            use_kernel="auto") -> torch.Tensor:
     """OPWA aggregation fused with traced-k Top-K selection (the paper's
     BCRS+OPWA hot path): updates [K, n] RAW flat client updates, ks [K]
     retained counts. Kernel route: ``threshold_find`` + ``fused_merge``
     (Hopper kernels on CUDA tensors, their twins on CPU tensors). Plain
-    route: ``topk_compress_batch`` + ``opwa_aggregate``. ``active`` gates
-    padded cohort rows out of the merge and the overlap counts."""
-    if use_kernel:
+    route: ``topk_compress_batch`` + ``opwa_aggregate``. ``use_kernel``:
+    "auto" takes the kernel route for CUDA tensors and the plain route for
+    CPU tensors; True the kernel route (the twins on CPU tensors); False the
+    plain route. ``active`` gates padded cohort rows out of the merge and
+    the overlap counts."""
+    if (updates.device.type == "cuda" if use_kernel == "auto"
+            else use_kernel):
         from repro_torch.kernels import ops as kops
         agg, _ = kops.megakernel_aggregate(
             updates, ks, coeffs, active=active, opwa=True,

@@ -26,6 +26,12 @@
 // a warp __reduce_add_sync and one pass over per-warp partials in shared
 // memory; the partials alternate between two buffers so one __syncthreads
 // a step is enough.
+//
+// Rows longer than MAX_BLOCK do not fit in registers. select_lo_wide runs
+// the same bisection with MAX_THREADS threads that re-read the row from
+// device memory (through L2) at every step, element idx by thread
+// idx % MAX_THREADS; counts are integers and the max is order-free, so its
+// lo equals select_lo's bit for bit on any row both take.
 #pragma once
 
 #include <cfloat>
@@ -100,6 +106,31 @@ __device__ __forceinline__ float select_lo(const float (&v)[ITEMS], int block,
       const int idx = threadIdx.x + i * blockDim.x;
       cnt += (idx < block && flush(fabsf(v[i])) >= mid) ? 1 : 0;
     }
+    const bool pred = block_sum(cnt, s, it & 1) >= k;
+    lo = pred ? mid : lo;
+    hi = pred ? hi : mid;
+  }
+  return lo;
+}
+
+// The bisection over a row of any length, each value read through
+// `value(idx)` (0 <= idx < block) once per step; returns lo as select_lo.
+// Every thread of the CTA must call it.
+template <typename Value>
+__device__ __forceinline__ float select_lo_wide(const Value& value, int block,
+                                                int k, Scratch& s) {
+  unsigned mx = 0u;
+  for (int idx = threadIdx.x; idx < block; idx += blockDim.x) {
+    const unsigned b = __float_as_uint(flush(fabsf(value(idx))));
+    if (b > mx) mx = b;
+  }
+  float hi = __uint_as_float(block_max(mx, s));
+  float lo = 0.0f;
+  for (int it = 0; it < N_ITERS; ++it) {
+    const float mid = flush(__fmul_rn(0.5f, __fadd_rn(lo, hi)));
+    int cnt = 0;
+    for (int idx = threadIdx.x; idx < block; idx += blockDim.x)
+      cnt += flush(fabsf(value(idx))) >= mid ? 1 : 0;
     const bool pred = block_sum(cnt, s, it & 1) >= k;
     lo = pred ? mid : lo;
     hi = pred ? hi : mid;

@@ -1,27 +1,52 @@
 // threshold_find: exact per-client k-th-largest |x| (or |e + x|) at runtime k.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/threshold_find.py
-// (threshold_find_pallas / _threshold_find_kernel). Same 16-ary search on the
-// f32 bit pattern of the magnitude: 8 sweeps, 15 candidate boundaries
-// lo + j*step per sweep, the new lo is the largest boundary whose count is
-// still >= k. After 8 sweeps lo is the k-th-largest pattern (ties kept).
+// (threshold_find_pallas / _threshold_find_kernel). The result is the one
+// that kernel's 16-ary bit-pattern search gives: the k-th-largest f32 bit
+// pattern of the magnitude (ties kept), a single well-defined value, so a
+// different exact search finds the same bits. The plain PyTorch twin
+// (kernels/threshold_find.py) repeats the reference's 8 sweeps and this
+// kernel is held to it bit for bit.
 //
-// What differs from the TPU: the Pallas kernel carries lo and the boundary
-// counts in VMEM scratch across a sequential grid. Hopper blocks run in no
-// order, so each sweep is one launch over (column chunk, client) blocks that
-// add their integer counts into per-(sweep, client, boundary) int32 counters
-// with atomicAdd; every block of the next sweep replays lo from the counters
-// of the sweeps before it (a handful of reads), and a last one-thread-per-
-// client launch writes the thresholds. Integer counts make the result
-// independent of the order of the atomics. The optional row absmax rides on
-// sweep 0: atomicMax on the non-negative f32 bit pattern is exact, so it is
-// deterministic too. The ragged edge is masked in the loop, never padded.
+// Design: an exact radix select on the 31-bit pattern, most significant
+// digits first, in three passes of 11, 11 and 9 bits:
 //
-// Bound on the card: bytes. The work is one read of x (and e) per sweep plus
-// 15 integer compares per element; the least the card could do is one read
-// (C*n*4 bytes, twice with EF). This simple version reads 8 times, so it is
-// ~8x above its bound by design; fusing the sweeps (a radix select on data
-// kept in shared memory, or one cooperative launch) is a later PR's work.
+//   pass 1  histogram of bits >> 20 (2048 bins) over the whole row, and the
+//           row absmax (atomicMax on the non-negative pattern);
+//   pass 2  histogram of (bits >> 9) & 2047 over the elements whose top 11
+//           bits are the bin pass 1 chose; those elements' patterns are
+//           also compacted into a candidate buffer of n/8 a client when the
+//           bin holds no more than that (pass 1's count says so);
+//   pass 3  histogram of bits & 511 over the elements whose top 22 bits are
+//           the prefix passes 1 and 2 chose, read from the candidates when
+//           pass 2 compacted them, else from x again.
+//
+// Each pass is one launch over (column chunk, client) blocks. A block
+// counts into a histogram in shared memory and adds its nonzero bins into
+// the client's global histogram with integer atomics, so the totals do not
+// depend on the order of the atomics (nor on the order in which warps
+// append candidates). The last block of a client to finish (a ticket:
+// __threadfence, then an atomic counter) picks the bin where the suffix
+// count from the top first reaches k, and hands the prefix, the rank left
+// inside that bin and the bin's count to the next pass; the last block of
+// pass 3 writes the threshold, and that of pass 1 the absmax. A row with
+// fewer than k elements (k > n) picks bin 0 in every pass, threshold 0, as
+// the twin gives. Patterns compare as unsigned values, as before, so NaN
+// and inf patterns (0x7f800000 and above) order exactly as in the twin.
+//
+// A call is 4 launches (one memset of the scratch, three passes) and reads
+// x (and e) 2 times, 3 when a client's chosen bin holds more than n/8 of
+// its elements (ties, all-equal rows); the previous design (8 sweeps) took
+// 11 launches and 8 reads. The ragged edge is masked in the loop, never
+// padded; float4 reads where every row is 16-byte aligned (n % 4 == 0 and
+// aligned bases).
+//
+// Bound on the card: bytes. The least the card could do is one read of x
+// (C*n*4 bytes, twice with EF); this design reads 2 times. Each thread
+// keeps 4 float4 loads in flight before it counts them. A few exponents
+// hold most of the magnitudes, so pass 1's shared-memory atomics meet on a
+// handful of hot bins; aggregating equal bins of a warp first
+// (__match_any_sync) measured slower on the card.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the last launch.
@@ -30,172 +55,336 @@
 
 namespace {
 
-constexpr int WAYS = 16;
-constexpr int BOUNDS = WAYS - 1;
-constexpr int SWEEPS = 8;
-constexpr unsigned STEP0 = (1u << 31) / WAYS;   // 2^27: span 2^31 in 16 buckets
 constexpr int THREADS = 256;
+constexpr int BINS = 2048;                 // the widest digit: 11 bits
+constexpr int UNROLL = 4;                  // float4 loads in flight a thread
+constexpr int CHUNK = 256;                 // candidate slots a warp reserves
+constexpr unsigned NONE = 0xffffffffu;     // an empty slot: no prefix is 2^22
 
-__device__ __forceinline__ unsigned sweep_step(int s) {
-  // interval width 2^31 / 16^s -> boundary spacing, floored at 1 (sweep 7)
-  unsigned st = STEP0 >> (4 * s);
-  return st > 0u ? st : 1u;
-}
-
-// lo of client c at the start of sweep s, replayed from the finished counts
-// of sweeps 0..s-1 (counts of boundary j are non-increasing in j, so the
-// largest qualifying j is the last one that qualifies).
-__device__ unsigned replay_lo(const int* __restrict__ counts, int c, int C,
-                              int k, int s) {
-  unsigned lo = 0u;
-  for (int t = 0; t < s; ++t) {
-    const int* cnt = counts + ((size_t)t * C + c) * BOUNDS;
-    unsigned jsel = 0u;
-    for (int j = 1; j < WAYS; ++j)
-      if (cnt[j - 1] >= k) jsel = (unsigned)j;
-    lo += jsel * sweep_step(t);
+// Scratch, int32, zeroed by one memset: the three global histograms, the
+// three ticket counters, the absmax pattern, the candidate cursors and the
+// hand-overs (prefix, rank, count of the chosen bin) from pass 1 to 2 and
+// from pass 2 to 3.
+struct Layout {
+  int C;
+  __host__ __device__ int* hist(int* s, int pass, int c) const {
+    // pass 1, 2: [C][2048]; pass 3: [C][512]
+    return s + (pass - 1) * C * BINS + c * (pass == 3 ? 512 : BINS);
   }
-  return lo;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_max(unsigned v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned u = __shfl_down_sync(0xffffffffu, v, o);
-    v = u > v ? u : v;
+  __host__ __device__ int* tickets(int* s, int pass) const {
+    return s + 2 * C * BINS + C * 512 + (pass - 1) * C;
   }
-  return v;
-}
-
-struct Tally {
-  unsigned b[BOUNDS];
-  int cnt[BOUNDS];
-  unsigned amax;
-
-  __device__ __forceinline__ void visit(float v, bool scale) {
-    const unsigned bits = __float_as_uint(fabsf(v));
-#pragma unroll
-    for (int j = 0; j < BOUNDS; ++j) cnt[j] += bits >= b[j] ? 1 : 0;
-    if (scale) amax = bits > amax ? bits : amax;
+  __host__ __device__ unsigned* amax(int* s) const {
+    return reinterpret_cast<unsigned*>(s + 2 * C * BINS + C * 512 + 3 * C);
+  }
+  __host__ __device__ int* cursor(int* s) const {
+    return s + 2 * C * BINS + C * 512 + 4 * C;
+  }
+  // the hand-over written by the last block of `pass`: [C][4]
+  __host__ __device__ int* sel(int* s, int pass, int c) const {
+    return s + 2 * C * BINS + C * 512 + 5 * C + (pass - 1) * 4 * C + 4 * c;
+  }
+  __host__ __device__ size_t ints() const {
+    return (size_t)2 * C * BINS + (size_t)C * 512 + 13 * (size_t)C;
   }
 };
 
-// One sweep: grid (chunks, C). VEC reads float4 (n % 4 == 0, 16-byte aligned
-// rows); otherwise one float per thread step with the edge masked by the
-// loop bound.
-template <bool EF, bool SCALE, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-count_kernel(const float* __restrict__ x, const float* __restrict__ e,
-             const int* __restrict__ ks, int* __restrict__ counts,
-             unsigned* __restrict__ absmax_bits, long long n, int C, int s) {
-  const int c = blockIdx.y;
-  __shared__ unsigned s_lo;
-  __shared__ int s_cnt[BOUNDS];
-  __shared__ unsigned s_amax;
-  if (threadIdx.x == 0) {
-    s_lo = replay_lo(counts, c, C, ks[c], s);
-    s_amax = 0u;
-  }
-  if (threadIdx.x < BOUNDS) s_cnt[threadIdx.x] = 0;
-  __syncthreads();
-
-  Tally t;
-  const unsigned lo = s_lo, step = sweep_step(s);
-#pragma unroll
-  for (int j = 0; j < BOUNDS; ++j) {
-    t.b[j] = lo + (unsigned)(j + 1) * step;   // < 2^32: lo + 15 at sweep 7
-    t.cnt[j] = 0;
-  }
-  t.amax = 0u;
-
-  const float* xr = x + (size_t)c * n;
-  const float* er = EF ? e + (size_t)c * n : nullptr;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* e4 = reinterpret_cast<const float4*>(er);
-    for (; i < n / 4; i += stride) {
-      float4 v = x4[i];
-      if (EF) {
-        const float4 r = e4[i];
-        v.x = __fadd_rn(r.x, v.x); v.y = __fadd_rn(r.y, v.y);
-        v.z = __fadd_rn(r.z, v.z); v.w = __fadd_rn(r.w, v.w);
-      }
-      t.visit(v.x, SCALE); t.visit(v.y, SCALE);
-      t.visit(v.z, SCALE); t.visit(v.w, SCALE);
-    }
-  } else {
-    for (; i < n; i += stride) {
-      const float v = EF ? __fadd_rn(er[i], xr[i]) : xr[i];
-      t.visit(v, SCALE);
-    }
-  }
-
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < BOUNDS; ++j) {
-    const int v = warp_sum(t.cnt[j]);
-    if (lane == 0 && v) atomicAdd(&s_cnt[j], v);
-  }
-  if (SCALE) {
-    const unsigned m = warp_max(t.amax);
-    if (lane == 0) atomicMax(&s_amax, m);
-  }
-  __syncthreads();
-  if (threadIdx.x < BOUNDS && s_cnt[threadIdx.x])
-    atomicAdd(&counts[((size_t)s * C + c) * BOUNDS + threadIdx.x],
-              s_cnt[threadIdx.x]);
-  if (SCALE && threadIdx.x == 0) atomicMax(&absmax_bits[c], s_amax);
+// Candidates a client's buffer holds: n / 8, at least 1.
+__host__ __device__ inline long long cand_cap(long long n) {
+  return n / 8 > 0 ? n / 8 : 1;
 }
 
-__global__ void finalize_kernel(const int* __restrict__ counts,
-                                const int* __restrict__ ks,
-                                int* __restrict__ th, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < C) th[c] = (int)replay_lo(counts, c, C, ks[c], SWEEPS);
+template <int PASS>
+struct Digit {
+  static constexpr int BITS = PASS == 3 ? 9 : 11;
+  static constexpr int NB = 1 << BITS;
+  static constexpr int LOW = PASS == 1 ? 20 : PASS == 2 ? 9 : 0;
+};
+
+__device__ __forceinline__ unsigned warp_max(unsigned v) {
+  return __reduce_max_sync(0xffffffffu, v);
+}
+
+// The last block of client c picks the bin of `h` (NB bins, read from
+// global memory after the other blocks' atomics) where the suffix count
+// from the top first reaches `rank`: the largest b with
+// sum_{j >= b} h[j] >= rank (b = 0 if none), and the count above it.
+template <int NB>
+__device__ void pick_bin(const int* h, int rank, int* s_sum, int& bin,
+                         int& above) {
+  constexpr int P = NB / THREADS;          // bins per thread, >= 2
+  const int t = threadIdx.x;
+  int v[P];
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    v[j] = __ldcg(h + t * P + j);          // L2: written by other blocks
+    sum += v[j];
+  }
+  // suffix sums over threads, from the top: above_t = sum of threads > t
+  s_sum[t] = sum;
+  __syncthreads();
+  for (int off = 1; off < THREADS; off <<= 1) {
+    const int add = t + off < THREADS ? s_sum[t + off] : 0;
+    __syncthreads();
+    s_sum[t] += add;
+    __syncthreads();
+  }
+  const int total = s_sum[0];
+  const int above_t = s_sum[t] - sum;
+  __shared__ int s_bin, s_above;
+  if (t == 0) {
+    s_bin = 0;
+    s_above = total - __ldcg(h);           // no bin reaches rank: bin 0
+  }
+  __syncthreads();
+  if (above_t < rank && above_t + sum >= rank) {
+    int run = above_t;
+#pragma unroll
+    for (int j = P - 1; j >= 0; --j) {
+      if (run + v[j] >= rank) {
+        s_bin = t * P + j;
+        s_above = run;
+        break;
+      }
+      run += v[j];
+    }
+  }
+  __syncthreads();
+  bin = s_bin;
+  above = s_above;
+}
+
+// One pass: grid (chunks, C).
+template <int PASS, bool EF, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+radix_pass(const float* __restrict__ x, const float* __restrict__ e,
+           const int* __restrict__ ks, int* __restrict__ scratch,
+           unsigned* __restrict__ cand, int* __restrict__ th,
+           float* __restrict__ absmax_out, long long n, int C) {
+  using D = Digit<PASS>;
+  const Layout L{C};
+  const int c = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  __shared__ int s_hist[D::NB];
+  __shared__ int s_sum[THREADS];
+  __shared__ unsigned s_amax;
+  __shared__ bool s_last;
+  for (int j = threadIdx.x; j < D::NB; j += THREADS) s_hist[j] = 0;
+  if (threadIdx.x == 0) s_amax = 0u;
+  const int* in = PASS == 1 ? nullptr : L.sel(scratch, PASS - 1, c);
+  const unsigned prefix = PASS == 1 ? 0u : (unsigned)in[0];
+  // pass 1's bin fits the candidate buffer: pass 2 fills it, pass 3 reads
+  // it instead of x. A warp's chunks hold more than CHUNK - 32 candidates
+  // each but its last, so the reserved slots stay below
+  // count * CHUNK / (CHUNK - 32) + warps * CHUNK.
+  const long long cap = cand_cap(n);
+  const int* first = PASS == 1 ? nullptr : L.sel(scratch, 1, c);
+  const long long warps = (long long)gridDim.x * (THREADS / 32);
+  const bool compact =
+      PASS != 1 && (long long)first[2] + first[2] / 7 + 1 + warps * CHUNK
+                       <= cap;
+  unsigned* my_cand = cand + (size_t)c * cap;
+  int* cursor = L.cursor(scratch) + c;
+  __syncthreads();
+
+  unsigned amax = 0u;
+  // count one pattern; returns whether it carries the earlier digits
+  auto visit = [&](unsigned bits) -> bool {
+    if constexpr (PASS == 1) {
+      amax = bits > amax ? bits : amax;
+      atomicAdd(&s_hist[bits >> D::LOW], 1);
+      return true;
+    } else if ((bits >> (D::LOW + D::BITS)) == prefix) {
+      atomicAdd(&s_hist[(bits >> D::LOW) & (D::NB - 1)], 1);
+      return true;
+    }
+    return false;
+  };
+  // pass 2, warp-collective: append the lanes' taken patterns to the
+  // warp's current chunk of CHUNK slots, reserving a new chunk from the
+  // client's cursor (one global atomic a chunk) when they do not fit and
+  // filling the old chunk's tail with NONE, which no prefix matches
+  int w_base = 0, w_used = 0, w_size = 0;      // the same in every lane
+  auto append = [&](unsigned bits, bool take) {
+    const unsigned m = __ballot_sync(0xffffffffu, take);
+    if (m == 0u) return;
+    const int cnt = __popc(m);
+    if (w_used + cnt > w_size) {
+      for (int j = w_used + lane; j < w_size; j += 32)
+        my_cand[w_base + j] = NONE;
+      int base = 0;
+      if (lane == 0) base = atomicAdd(cursor, CHUNK);
+      w_base = __shfl_sync(0xffffffffu, base, 0);
+      w_used = 0;
+      w_size = CHUNK;
+    }
+    if (take) my_cand[w_base + w_used + __popc(m & ((1u << lane) - 1u))] =
+        bits;
+    w_used += cnt;
+  };
+  auto pattern = [](float v) { return __float_as_uint(fabsf(v)); };
+
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the warp's first item: loop conditions are the same for all lanes
+  const long long w_start =
+      (long long)blockIdx.x * blockDim.x + threadIdx.x - lane;
+  if (PASS == 3 && compact) {
+    const long long count = *cursor;           // every reserved slot
+    for (long long w0 = w_start; w0 < count; w0 += stride)
+      if (w0 + lane < count) visit(my_cand[w0 + lane]);
+  } else if (VEC) {
+    // UNROLL float4 loads in flight a thread before any is counted
+    const float4* x4 =
+        reinterpret_cast<const float4*>(x + (size_t)c * n);
+    const float4* e4 =
+        reinterpret_cast<const float4*>(EF ? e + (size_t)c * n : nullptr);
+    const long long n4 = n / 4;
+    long long w0 = w_start;
+    for (; w0 + (UNROLL - 1) * stride + 31 < n4; w0 += UNROLL * stride) {
+      float4 v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) v[u] = x4[w0 + lane + u * stride];
+      if (EF) {
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const float4 r = e4[w0 + lane + u * stride];
+          v[u].x = __fadd_rn(r.x, v[u].x); v[u].y = __fadd_rn(r.y, v[u].y);
+          v[u].z = __fadd_rn(r.z, v[u].z); v[u].w = __fadd_rn(r.w, v[u].w);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const unsigned b[4] = {pattern(v[u].x), pattern(v[u].y),
+                               pattern(v[u].z), pattern(v[u].w)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool hit = visit(b[q]);
+          if (PASS == 2 && compact) append(b[q], hit);
+        }
+      }
+    }
+    for (; w0 < n4; w0 += stride) {
+      const long long i = w0 + lane;
+      const bool ok = i < n4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ok) {
+        v = x4[i];
+        if (EF) {
+          const float4 r = e4[i];
+          v.x = __fadd_rn(r.x, v.x); v.y = __fadd_rn(r.y, v.y);
+          v.z = __fadd_rn(r.z, v.z); v.w = __fadd_rn(r.w, v.w);
+        }
+      }
+      const unsigned b[4] = {pattern(v.x), pattern(v.y), pattern(v.z),
+                             pattern(v.w)};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool hit = ok && visit(b[q]);
+        if (PASS == 2 && compact) append(b[q], hit);
+      }
+    }
+  } else {
+    const float* xr = x + (size_t)c * n;
+    const float* er = EF ? e + (size_t)c * n : nullptr;
+    for (long long w0 = w_start; w0 < n; w0 += stride) {
+      const long long i = w0 + lane;
+      const bool ok = i < n;
+      const unsigned b =
+          ok ? pattern(EF ? __fadd_rn(er[i], xr[i]) : xr[i]) : 0u;
+      const bool hit = ok && visit(b);
+      if (PASS == 2 && compact) append(b, hit);
+    }
+  }
+  if constexpr (PASS == 1) {
+    const unsigned m = warp_max(amax);
+    if (lane == 0) atomicMax(&s_amax, m);
+  }
+  if (PASS == 2 && compact)
+    for (int j = w_used + lane; j < w_size; j += 32) my_cand[w_base + j] = NONE;
+  __syncthreads();
+
+  int* gh = L.hist(scratch, PASS, c);
+  for (int j = threadIdx.x; j < D::NB; j += THREADS)
+    if (s_hist[j]) atomicAdd(gh + j, s_hist[j]);
+  if (PASS == 1 && threadIdx.x == 0) atomicMax(L.amax(scratch) + c, s_amax);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(L.tickets(scratch, PASS) + c, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  const int rank = PASS == 1 ? ks[c] : in[1];
+  int bin, above;
+  pick_bin<D::NB>(gh, rank, s_sum, bin, above);
+  if (threadIdx.x == 0) {
+    const unsigned p = (prefix << D::BITS) | (unsigned)bin;
+    if (PASS == 3) {
+      th[c] = (int)p;
+    } else {
+      int* out = L.sel(scratch, PASS, c);
+      out[0] = (int)p;
+      out[1] = rank - above;
+      out[2] = __ldcg(gh + bin);            // elements in the chosen bin
+    }
+    if (PASS == 1 && absmax_out != nullptr)
+      absmax_out[c] = __uint_as_float(__ldcg(L.amax(scratch) + c));
+  }
 }
 
 template <bool EF, bool VEC>
-cudaError_t run_sweep(dim3 grid, cudaStream_t st, const float* x,
-                      const float* e, const int* ks, int* counts,
-                      unsigned* absmax, long long n, int C, int s) {
-  if (absmax != nullptr && s == 0)
-    count_kernel<EF, true, VEC><<<grid, THREADS, 0, st>>>(
-        x, e, ks, counts, absmax, n, C, s);
-  else
-    count_kernel<EF, false, VEC><<<grid, THREADS, 0, st>>>(
-        x, e, ks, counts, absmax, n, C, s);
+cudaError_t run_passes(dim3 grid, cudaStream_t st, const float* x,
+                       const float* e, const int* ks, int* scratch,
+                       unsigned* cand, int* th, float* absmax, long long n,
+                       int C) {
+  radix_pass<1, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
+                                                   th, absmax, n, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  radix_pass<2, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
+                                                   th, absmax, n, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  radix_pass<3, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
+                                                   th, absmax, n, C);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Ints of scratch (zeroed by the call) a call needs for C clients.
+extern "C" long long threshold_find_scratch_ints(int C) {
+  return (long long)Layout{C}.ints();
+}
+
+// Ints of candidate buffer (not zeroed) a call needs for C clients of n.
+extern "C" long long threshold_find_cand_ints(int C, long long n) {
+  return (long long)C * cand_cap(n);
+}
+
 // x, e: [C, n] f32 contiguous (e may be null: no EF); ks: [C] i32 with
 // 1 <= k <= n; th: [C] i32 out (the threshold pattern, always < 2^31);
-// absmax: [C] f32 out or null; counts: [8, C, 15] i32 scratch.
+// absmax: [C] f32 out or null; scratch: threshold_find_scratch_ints(C) i32;
+// cand: threshold_find_cand_ints(C, n) i32.
 extern "C" int threshold_find_launch(const void* x, const void* e,
                                      const void* ks, void* th, void* absmax,
-                                     void* counts, long long n, int C,
-                                     void* stream) {
+                                     void* scratch, void* cand, long long n,
+                                     int C, void* stream) {
+  if (n < 1 || C < 1 || C > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* ef = static_cast<const float*>(e);
   const int* k = static_cast<const int*>(ks);
-  int* cnt = static_cast<int*>(counts);
-  unsigned* am = static_cast<unsigned*>(absmax);
+  int* s = static_cast<int*>(scratch);
+  unsigned* cd = static_cast<unsigned*>(cand);
+  float* am = static_cast<float*>(absmax);
+  int* t = static_cast<int*>(th);
 
-  cudaError_t err = cudaMemsetAsync(
-      cnt, 0, sizeof(int) * (size_t)SWEEPS * C * BOUNDS, st);
+  cudaError_t err =
+      cudaMemsetAsync(s, 0, sizeof(int) * Layout{C}.ints(), st);
   if (err != cudaSuccess) return err;
-  if (am != nullptr) {
-    err = cudaMemsetAsync(am, 0, sizeof(unsigned) * (size_t)C, st);
-    if (err != cudaSuccess) return err;
-  }
   const bool aligned =
       (reinterpret_cast<uintptr_t>(xf) % 16 == 0) &&
       (ef == nullptr || reinterpret_cast<uintptr_t>(ef) % 16 == 0);
@@ -205,17 +394,13 @@ extern "C" int threshold_find_launch(const void* x, const void* e,
   long long cap = 1056 / C;        // ~8 blocks per SM over the whole grid
   if (cap < 1) cap = 1;
   const dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)C);
-
-  for (int s = 0; s < SWEEPS; ++s) {
-    if (ef != nullptr)
-      err = vec ? run_sweep<true, true>(grid, st, xf, ef, k, cnt, am, n, C, s)
-                : run_sweep<true, false>(grid, st, xf, ef, k, cnt, am, n, C, s);
-    else
-      err = vec ? run_sweep<false, true>(grid, st, xf, ef, k, cnt, am, n, C, s)
-                : run_sweep<false, false>(grid, st, xf, ef, k, cnt, am, n, C, s);
-    if (err != cudaSuccess) return err;
-  }
-  finalize_kernel<<<(C + 127) / 128, 128, 0, st>>>(cnt, k, static_cast<int*>(th),
-                                                   C);
-  return cudaGetLastError();
+  if (ef != nullptr)
+    return vec ? run_passes<true, true>(grid, st, xf, ef, k, s, cd, t, am, n,
+                                        C)
+               : run_passes<true, false>(grid, st, xf, ef, k, s, cd, t, am,
+                                         n, C);
+  return vec ? run_passes<false, true>(grid, st, xf, ef, k, s, cd, t, am, n,
+                                       C)
+             : run_passes<false, false>(grid, st, xf, ef, k, s, cd, t, am, n,
+                                        C);
 }

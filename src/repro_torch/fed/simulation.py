@@ -296,23 +296,41 @@ def _legacy_round(server: FLServer, local_train, clients, selected, fr,
 
 def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
            failure: Optional[FailureInjector] = None,
-           collect_overlap: bool = False, engine: str = "fused",
+           collect_overlap: bool = False, fused: bool = True,
+           engine: Optional[str] = None,
            straggler: Optional[StragglerPolicy] = None,
+           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+           stop_after: Optional[int] = None, *,
            device="cuda", init_params=None) -> FLSimResult:
     """Run the simulation on ``device`` ("cuda" by default; without CUDA
-    this raises — pass ``device="cpu"`` for the CPU). ``engine`` is
-    "fused" (one ``fed.round_step`` program per round, the next round's
-    batches staged while it runs) or "legacy" (per-client local SGD and the
-    per-client compression loop of ``FLServer.round``; batches drawn as each
-    client trains, never ahead, so the shared rng keeps the reference's
-    order). ``init_params`` starts from given weights instead of the port's
-    seeded init. ``FLSimResult.losses`` holds each round's mean over the
-    cohort of the clients' last local losses."""
+    this raises — pass ``device="cpu"`` for the CPU). The arguments up to
+    ``stop_after`` are the reference's, in its order: ``engine`` selects
+    the round engine and, when None, falls back to the ``fused`` bool
+    ("fused" / "legacy"). "fused" runs one ``fed.round_step`` program per
+    round, the next round's batches staged while it runs; "legacy" runs
+    per-client local SGD and the per-client compression loop of
+    ``FLServer.round``, batches drawn as each client trains, never ahead,
+    so the shared rng keeps the reference's order. An unknown engine raises
+    ``ValueError``; the reference's other engines raise
+    ``NotImplementedError`` naming their ROADMAP item. ``checkpoint_dir``,
+    ``checkpoint_every`` and ``stop_after`` belong to the async engine.
+    ``init_params`` starts from given weights instead of the port's seeded
+    init. ``FLSimResult.losses`` holds each round's mean over the cohort of
+    the clients' last local losses."""
+    if engine is None:
+        engine = "fused" if fused else "legacy"
+    if engine not in ("legacy", "fused", "scan", "pop_scan", "population",
+                      "async"):
+        raise ValueError(f"unknown engine {engine!r}")
     if engine not in ("fused", "legacy"):
+        item = {"scan": 2, "pop_scan": 5, "population": 5, "async": 6}[engine]
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: 'fused' and 'legacy' "
-            "are. 'scan' is ROADMAP queue 1 item 3, 'pop_scan'/'population' "
-            "item 4, 'async' item 6")
+            f"engine={engine!r} is not ported yet ('fused' and 'legacy' "
+            f"are): ROADMAP queue 1 item {item}")
+    if checkpoint_dir is not None or stop_after is not None:
+        raise ValueError("checkpoint_dir / stop_after are engine='async' "
+                         "features (the sync checkpointing entry point is "
+                         "launch.fl_train)")
     dev = resolve_device(device)
     (rng, clients, parts, fracs_all,
      (x_train, y_train, x_test, y_test), server) = _setup_sim(

@@ -8,28 +8,42 @@ row, over blocks of ``blk_k`` keys: ``q`` is cast to f32 and scaled by
 max ``m``, denominator ``l`` and accumulator ``acc`` are f32; the output is
 ``acc / max(l, 1e-30)`` in q's dtype.
 
-Two implementations:
+Two hand-written Hopper kernels, each with its plain PyTorch twin:
 
-  * ``flash_attention_cuda``: the hand-written Hopper kernel
-    (``csrc/flash_attention.cu``), one CTA per (bh, 64-query tile), f32 on
-    the CUDA cores;
-  * ``flash_attention_plain``: the plain PyTorch twin, the same blockwise
+  * ``flash_attention_cuda``: ``csrc/flash_attention.cu``, one CTA per (bh,
+    64-query tile), f32 on the CUDA cores, for f32 and bf16 and D in
+    ``HEAD_DIMS``; its twin ``flash_attention_plain`` runs the same blockwise
     online softmax vectorised over BH and the query rows. The CPU tests hold
-    it to the Pallas kernel; ``chip_smoke.py`` holds the kernel to it.
+    the twin to the Pallas kernel; ``chip_smoke.py`` holds the kernel to it;
+  * ``flash_attention_wgmma_cuda``: ``csrc/flash_attention_wgmma.cu``, bf16
+    on the tensor cores (``wgmma``, K and V streamed by TMA), D in
+    ``WGMMA_HEAD_DIMS``; it must round P to bf16 for the PV product, and
+    its twin ``flash_attention_wgmma_plain`` rounds where it rounds. The two
+    are held to each other, and the twin to the reference, within
+    ``wgmma_bound``.
 
-The kernel sums in another order than the twin (its own key tiles, its own
-dot-product order), so the two agree within a stated bound, not bit for bit:
+The f32 kernel sums in another order than its twin (its own key tiles, its
+own dot-product order), so the two agree within a stated bound, not bit for
+bit:
 f32 outputs within ``B = (D + Sk) * 2^-24 * max|v|`` plus 4 ULP of
 ``max|v|``; bf16 outputs within that plus one bf16 ULP, as each side rounds
 its own f32 result (and the bf16 kernel's output is the f32 kernel's on the
 upcast inputs, rounded).
 
-``flash_attention`` picks by the tensor's device: the twin for CPU tensors,
-the kernel for CUDA tensors (it launches or raises — there is no fallback).
+``flash_attention`` picks by the tensor's device: ``flash_attention_plain``
+for CPU tensors; for CUDA tensors the wgmma kernel when the inputs are bf16
+with D in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0 and Sk % 64 == 0 (what
+``ops.flash_attention`` gives at its default blocks), else
+``flash_attention_cuda``. A kernel launches or raises: there is no
+fallback, to the other kernel or to a twin. Each kernel counts its own
+launches (``flash_attention.launches``, ``flash_attention_wgmma.launches``).
+``flash_attention_wgmma`` is the wgmma route alone: its twin for CPU
+tensors, its kernel for CUDA tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -39,6 +53,11 @@ NEG_INF = -1e30
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims of the wgmma kernel, and its query and key tiles
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_BQ, WGMMA_BK = 128, 64
+#: an f32 add on the tensor cores at its worst (truncation): one ulp
+U_SUM = 2.0 ** -23
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,6 +88,67 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + p @ vb
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def flash_attention_wgmma_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True
+                                ) -> torch.Tensor:
+    """Plain PyTorch twin of the wgmma kernel (any device), bf16 in and out:
+    per key tile of ``WGMMA_BK``, ``s = (q . k) * scale`` in f32 (the scale
+    after the dot product, as the kernel applies it), the -1e30 causal mask,
+    the reference's m / l / alpha recurrence, P rounded to bf16 before it
+    enters both ``l`` and the PV product, the output rounded to bf16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    assert sk % WGMMA_BK == 0
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float()
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, WGMMA_BK):
+        kb = k[:, k0:k0 + WGMMA_BK].float()
+        vb = v[:, k0:k0 + WGMMA_BK].float()
+        s = (qf @ kb.transpose(1, 2)) * scale
+        if causal:
+            k_pos = k0 + torch.arange(WGMMA_BK, device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ vb
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+
+
+def wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, *, p_roundings: int) -> torch.Tensor:
+    """Elementwise bound on |a - b| between two outputs of the wgmma route's
+    arithmetic, before each side's own rounding of its output to bf16 (add
+    one bf16 ULP of the larger of the two for that). ``p_roundings`` is the
+    number of sides that round P to bf16: 2 for the kernel against its
+    twin, 1 for the twin against the reference (``csrc/
+    flash_attention_wgmma.cu`` derives it). ``out`` is either output, [BH,
+    Sq, D]; the bound is f64."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    qm = q.double().abs().amax(dim=(1, 2))
+    km = k.double().abs().amax(dim=(1, 2))
+    ds = (d + 2) * U_SUM * d * qm * km / math.sqrt(d)
+    eps = (p_roundings * 2.0 ** -8 + ds + 2.0 ** -16
+           + (sk / WGMMA_BK + 1) * 2.0 ** -21)
+    mag = v.double().abs().amax(dim=1)[:, None, :] + out.double().abs()
+    return ((eps / (1 - eps))[:, None, None] + (sk + d + 8) * U_SUM) * mag
+
+
+def takes_wgmma(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the wgmma kernel takes these inputs: bf16, D in
+    ``WGMMA_HEAD_DIMS``, Sq a multiple of 128 and Sk of 64."""
+    return (q.dtype == torch.bfloat16 and q.dim() == 3
+            and q.shape[2] in WGMMA_HEAD_DIMS
+            and q.shape[1] % WGMMA_BQ == 0 and k.shape[1] % WGMMA_BK == 0)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,20 +210,72 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _flash_wgmma_lib():
+    fn = build.library("flash_attention_wgmma").flash_attention_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True
+                               ) -> torch.Tensor:
+    """Launch the wgmma kernel on bf16 CUDA tensors (raises on anything it
+    does not take)."""
+    check_inputs(q, k, v, WGMMA_BQ, WGMMA_BK)
+    if not takes_wgmma(q, k):
+        raise ValueError("flash_attention_wgmma_cuda: needs bf16 with D in "
+                         f"{WGMMA_HEAD_DIMS}; got {q.dtype}, D={q.shape[2]}")
+    bh, sq, d = q.shape
+    fn = _flash_wgmma_lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 bh, sq, k.shape[1], d, int(bool(causal)),
+                 1.0 / (d ** 0.5), stream)
+    build.check(err, "flash_attention_wgmma")
+    flash_attention_wgmma.launches += 1
+    return out
+
+
+def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The wgmma route alone: bf16 [BH, Sq, D] q and [BH, Sk, D] k, v with D
+    in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0, Sk % 64 == 0. CPU tensors take
+    its twin; CUDA tensors launch the kernel (counted in
+    ``flash_attention_wgmma.launches``)."""
+    if q.device.type == "cpu":
+        return flash_attention_wgmma_plain(q, k, v, causal=causal)
+    return flash_attention_wgmma_cuda(q, k, v, causal=causal)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, blk_q: int = 128,
                     blk_k: int = 128) -> torch.Tensor:
     """q: [BH, Sq, D]; k, v: [BH, Sk, D] (heads pre-flattened), f32 or
     bf16; Sq % blk_q == 0 and Sk % blk_k == 0 (pad in ``ops``).
 
-    Returns [BH, Sq, D] in q's dtype. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (counted in ``flash_attention.launches``)."""
+    Returns [BH, Sq, D] in q's dtype. CPU tensors take the plain twin
+    ``flash_attention_plain``. CUDA tensors go to the wgmma kernel when
+    ``takes_wgmma`` (bf16, D in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0,
+    Sk % 64 == 0), counted in ``flash_attention_wgmma.launches``, and to
+    ``flash_attention_cuda`` otherwise (f32, other head dims, other
+    blocks), counted in ``flash_attention.launches``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, blk_q=blk_q,
                                      blk_k=blk_k)
+    check_inputs(q, k, v, blk_q, blk_k)
+    if takes_wgmma(q, k):
+        return flash_attention_wgmma_cuda(q, k, v, causal=causal)
     return flash_attention_cuda(q, k, v, causal=causal, blk_q=blk_q,
                                 blk_k=blk_k)
 
 
-#: kernel launches (one per call that reaches the Hopper kernel)
+#: kernel launches (one per call that reaches csrc/flash_attention.cu)
 flash_attention.launches = 0
+#: kernel launches (one per call that reaches csrc/flash_attention_wgmma.cu)
+flash_attention_wgmma.launches = 0

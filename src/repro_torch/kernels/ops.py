@@ -43,10 +43,12 @@ def _blocks(u: torch.Tensor, block: int) -> torch.Tensor:
 def block_topk(u: torch.Tensor, cr: float, block: int = 8192) -> Compressed:
     """Flat vector -> block Top-K ``Compressed`` through the ``block_topk``
     kernel: each ``block``-wide tile keeps ``k_for_ratio(block, cr)``
-    entries by the kernel's value bisection (ties kept)."""
+    entries by the kernel's value bisection (ties kept). The values come
+    back in ``u``'s dtype, as the reference's."""
     n = u.numel()
     vals, mask = block_topk_rows(_blocks(u, block), k_for_ratio(block, cr))
-    return Compressed(vals.reshape(-1)[:n], mask.reshape(-1)[:n] != 0)
+    return Compressed(vals.reshape(-1)[:n].to(u.dtype),
+                      mask.reshape(-1)[:n] != 0)
 
 
 def overlap_combine(vals: torch.Tensor, masks: torch.Tensor,

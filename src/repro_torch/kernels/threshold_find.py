@@ -7,15 +7,20 @@ k-th-largest f32 bit pattern of ``|.|`` per row: the exact Top-K mask is
 bisection for every k in [1, n]. With ``emit_scale`` it also returns the row
 absmax, which feeds the int8/int4 codec scale.
 
-Two implementations of one algorithm — the reference's 16-ary search, 8
-sweeps of 15 candidate boundaries ``lo + j*step`` each:
+The k-th-largest pattern is a single well-defined value, so two exact
+searches give the same bits:
 
   * ``threshold_find_cuda``: the hand-written Hopper kernel
-    (``csrc/threshold_find.cu``) — per-sweep launches whose blocks add
-    integer counts atomically, a deterministic result;
-  * ``threshold_find_plain``: the plain PyTorch twin, the same sweeps on
-    whole rows. The CPU tests run it; ``chip_smoke.py`` holds the kernel to
-    it bit for bit.
+    (``csrc/threshold_find.cu``) — an exact radix select on the 31-bit
+    pattern in three passes of 11, 11 and 9 bits, each a histogram whose
+    blocks add integer counts atomically (a deterministic result); the last
+    pass reads the second's compacted candidates, or x again when the
+    chosen bin holds more than n/8 of a row; 4 launches a call, counting
+    the memset of its scratch, and 2 or 3 reads of x;
+  * ``threshold_find_plain``: the plain PyTorch twin, the reference's
+    16-ary search (8 sweeps of 15 candidate boundaries ``lo + j*step``) on
+    whole rows. The CPU tests hold it to the Pallas kernel; ``chip_smoke.py``
+    holds the kernel to it bit for bit.
 
 ``threshold_find`` picks by the tensor's device: the twin for CPU tensors,
 the kernel for CUDA tensors (it launches or raises — there is no fallback).
@@ -70,10 +75,16 @@ def threshold_find_plain(x: torch.Tensor, ks: torch.Tensor,
 def _threshold_find_lib():
     lib = build.library("threshold_find")
     fn = lib.threshold_find_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    scratch = lib.threshold_find_scratch_ints
+    scratch.argtypes = [ctypes.c_int]
+    scratch.restype = ctypes.c_longlong
+    cand = lib.threshold_find_cand_ints
+    cand.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    cand.restype = ctypes.c_longlong
+    return fn, scratch, cand
 
 
 def _check_rows(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -98,18 +109,22 @@ def threshold_find_cuda(x: torch.Tensor, ks: torch.Tensor,
             or ks.numel() != c or not ks.is_contiguous()):
         raise ValueError("threshold_find_cuda: ks must be contiguous int32 "
                          f"[{c}] on {x.device}")
-    fn = _threshold_find_lib()
+    if not 1 <= c <= 65535:
+        raise ValueError(f"threshold_find_cuda: C={c} outside [1, 65535]")
+    fn, scratch_ints, cand_ints = _threshold_find_lib()
     th = torch.empty((c,), dtype=torch.int32, device=x.device)
     absmax = (torch.empty((c,), dtype=torch.float32, device=x.device)
               if emit_scale else None)
-    counts = torch.empty((SWEEPS, c, WAYS - 1), dtype=torch.int32,
-                         device=x.device)
+    scratch = torch.empty((scratch_ints(c),), dtype=torch.int32,
+                          device=x.device)
+    cand = torch.empty((cand_ints(c, n),), dtype=torch.int32,
+                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), e.data_ptr() if e is not None else None,
                  ks.data_ptr(), th.data_ptr(),
                  absmax.data_ptr() if emit_scale else None,
-                 counts.data_ptr(), n, c, stream)
+                 scratch.data_ptr(), cand.data_ptr(), n, c, stream)
     build.check(err, "threshold_find")
     threshold_find.launches += 1
     return (th, absmax) if emit_scale else th

@@ -1,7 +1,10 @@
 """The port's Hopper kernels on the card: each FL kernel bit for bit
-against its plain twin, ``flash_attention`` within its summation-order bound
-of its twin (plus one bf16 ULP in bf16), the device-based dispatch of the
-wrappers, and short ``run_fl`` runs (fused and legacy engines) and a short
+against its plain twin (``threshold_find`` also on adversarial rows, the
+block kernels also on rows wider than their register path), the present
+``flash_attention`` kernel within its summation-order bound of its twin
+(plus one bf16 ULP in bf16), the bf16 wgmma kernel within ``wgmma_bound``
+of its twin, the device-based dispatch of the wrappers (bf16 to the wgmma
+kernel), and short ``run_fl`` runs (fused and legacy engines) and a short
 reduced-model serve through the kernels' paths.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
@@ -133,8 +136,13 @@ def test_block_kernels_bitwise_vs_twins(card, nb, block):
 
 
 def test_block_kernels_refuse_rows_above_the_limit(card):
-    with pytest.raises(ValueError, match="block"):
-        bt.block_topk(torch.ones(2, bt.MAX_BLOCK + 1, device=card), 3)
+    # the one limit left on a row: k may not exceed its length (rows above
+    # MAX_BLOCK take the wide path, test_block_kernels_wide_rows)
+    with pytest.raises(ValueError, match="k=5"):
+        bt.block_topk(torch.ones(2, 4, device=card), 5)
+    with pytest.raises(ValueError, match="k=5"):
+        eu.ef_update(torch.ones(2, 4, device=card),
+                     torch.ones(2, 4, device=card), 5)
 
 
 @pytest.mark.parametrize("c,n", [(5, 136_724), (3, 1001)])
@@ -183,16 +191,135 @@ def test_flash_kernel_vs_twin(card, d, dtype, causal):
     q = torch.randn(3, 256, d, device=card, generator=g).to(dtype)
     k = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
     v = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
+    # the present kernel (bf16 at D 64 / 128 reaches it only directly: the
+    # entry point sends those to the wgmma kernel)
     f0 = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
     assert fa.flash_attention.launches == f0 + 1
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and _flash_close(got, want, v)
     if dtype == torch.bfloat16:       # the f32 arithmetic on exact upcasts
-        up = fa.flash_attention(q.float(), k.float(), v.float(),
-                                causal=causal)
+        up = fa.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                     causal=causal)
         assert torch.equal(got, up.to(torch.bfloat16))
+
+
+def _wgmma_close(got, want, q, k, v, p_roundings):
+    """Within wgmma_bound plus one bf16 ULP of the larger magnitude."""
+    diff = (got.double() - want.double()).abs()
+    mag = torch.maximum(got.double().abs(), want.double().abs())
+    _, e = torch.frexp(mag.float())
+    limit = fa.wgmma_bound(q, k, v, mag, p_roundings=p_roundings) + \
+        torch.pow(2.0, (e - 8).double())
+    return bool((diff <= limit).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_vs_twin(card, d, causal):
+    g = torch.Generator(device=card).manual_seed(d + causal)
+    q, k, v = (torch.randn(3, s, d, device=card, generator=g).to(
+        torch.bfloat16) for s in (256, 384, 384))
+    w0 = fa.flash_attention_wgmma.launches
+    got = fa.flash_attention_wgmma(q, k, v, causal=causal)
+    assert fa.flash_attention_wgmma.launches == w0 + 1
+    want = fa.flash_attention_wgmma_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert _wgmma_close(got, want, q, k, v, 2)
+    f32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    assert _wgmma_close(want, f32, q, k, v, 1)
+
+
+def test_flash_wgmma_ragged_entry_point(card):
+    """Sq 700 x Sk 1000 through ops.flash_attention (padded to 768 x 1024
+    there): the wgmma kernel's rows, within the bound of its twin."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(1, 700, 2, 64, device=card, generator=g).bfloat16()
+    k, v = (torch.randn(1, 1000, 2, 64, device=card, generator=g).bfloat16()
+            for _ in range(2))
+    w0 = fa.flash_attention_wgmma.launches
+    got = ops.flash_attention(q, k, v)
+    assert fa.flash_attention_wgmma.launches == w0 + 1
+
+    def flat(x, s):
+        t = x.transpose(1, 2).reshape(2, x.shape[1], 64)
+        return torch.nn.functional.pad(t, (0, 0, 0, s - x.shape[1]))
+
+    qb, kb, vb = flat(q, 768), flat(k, 1024), flat(v, 1024)
+    want = fa.flash_attention_wgmma_plain(qb, kb, vb)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    got = flat(got, 768)           # [BH, Sq, D], zero rows past 700
+    assert _wgmma_close(got[:, :700], want[:, :700], qb[:, :700], kb, vb, 2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_reaches_the_wgmma_kernel(card, d):
+    x = torch.randn(1, 256, 4, d, device=card).bfloat16()
+    f0, w0 = fa.flash_attention.launches, fa.flash_attention_wgmma.launches
+    ops.flash_attention(x, x, x)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_wgmma.launches) == (f0, w0 + 1)
+    ops.flash_attention(x.float(), x.float(), x.float())
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_wgmma.launches) == (f0 + 1, w0 + 1)
+
+
+def test_threshold_find_adversarial_rows(card):
+    """Rows that stress the radix select, thresholds and absmax bit for bit
+    against the twin: every k of a row of ties, zeros, all equal, denormal,
+    NaN, +-inf, ties at the k-th value, n % 4 != 0, unaligned rows, C = 1
+    and C = 32."""
+    g = torch.Generator(device=card).manual_seed(3)
+    row = torch.randint(-3, 4, (64,), device=card, generator=g).float() * 0.5
+    cases = [(row.repeat(64, 1).contiguous(), None,
+              torch.arange(1, 65, device=card, dtype=torch.int32))]
+    c, n = 32, 1023
+    x = torch.randn(c, n, device=card, generator=g)
+    x[0], x[1] = 0.0, 1.5
+    x[2] *= 1e-40
+    x[3, ::7] = float("nan")
+    x[4, ::5], x[4, 1::5] = float("inf"), float("-inf")
+    x[5, :600] = x[5, 0]
+    x[6] = float("nan")
+    ks = torch.randint(1, n + 1, (c,), device=card, generator=g,
+                       dtype=torch.int32)
+    ks[0], ks[1], ks[5], ks[-1] = 1, n, 300, n
+    e = 0.3 * torch.randn(c, n, device=card, generator=g)
+    cases += [(x, None, ks), (x, e, ks)]
+    buf = torch.randn(3 * 512 + 1, device=card, generator=g)
+    cases.append((buf[1:].view(3, 512), None,
+                  torch.tensor([1, 100, 512], device=card, dtype=torch.int32)))
+    cases.append((torch.tensor([[-2.5]], device=card), None,
+                  torch.tensor([1], device=card, dtype=torch.int32)))
+    for x, e, ks in cases:
+        th, am = tf.threshold_find(x, ks, e, emit_scale=True)
+        tp, ap = tf.threshold_find_plain(x, ks, e, emit_scale=True)
+        assert torch.equal(th, tp) and _same_bits(am, ap)
+
+
+def test_block_kernels_wide_rows(card):
+    """block = 32768, above the register path: the wide path, bit for bit
+    against the twins."""
+    x = _rows(8, 32768, card)
+    e = 0.3 * _rows(8, 32768, card, seed=1).nan_to_num(0.0, 0.0, 0.0)
+    b0, e0 = bt.block_topk.launches, eu.ef_update.launches
+    for k in (1, 3277, 32768):
+        v, m = bt.block_topk(x, k)
+        pv, pm = bt.block_topk_plain(x, k)
+        assert _same_bits(v, pv) and torch.equal(m, pm)
+        s, r = eu.ef_update(x, e, k)
+        ps, pr = eu.ef_update_plain(x, e, k)
+        assert _same_bits(s, ps) and _same_bits(r, pr)
+    assert (bt.block_topk.launches, eu.ef_update.launches) == (b0 + 3, e0 + 3)
+    u = x.reshape(-1)[:70_001].nan_to_num(0.0, 0.0, 0.0)
+    got = ops.block_topk(u, 0.1, block=32768)
+    want = ops.block_topk(u.cpu(), 0.1, block=32768)
+    assert torch.equal(got.mask.cpu(), want.mask)
+    assert _same_bits(got.values.cpu(), want.values)
 
 
 def test_flash_entry_point_ragged_and_gqa(card):
