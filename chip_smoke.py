@@ -33,7 +33,8 @@
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
    equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
    kernel against its twin and that twin against the f32 twin (within
-   ``wgmma_bound``, plus one bf16 ULP) at the serve shape [4, 2048, 32, 64]
+   ``wgmma_twin_and_bound``, plus one bf16 ULP; the check must reject a
+   planted fault, one key tile skipped) at the serve shape [4, 2048, 32, 64]
    (bf16 and f32), yi-9b's heads (D = 128, kv broadcast from 4 heads), a
    ragged S = 1000 and Sq 700 x Sk 1000, Sq 128 x Sk 384, a non-causal case
    and one 32k sequence of ``prefill_32k``, timed beside their twins and
@@ -84,6 +85,8 @@ BLOCK_LEAF = (LEAF[1] // BLOCK, BLOCK)
 BLOCK_RAGGED = (2, 1000)
 #: rows wider than the block kernels hold in registers (the wide path)
 BLOCK_WIDE = (8, 32768)
+#: threshold_find's large tie-heavy adversarial rows
+BIG_TIES = (8, 1 << 21)
 
 
 def check(cond: bool, what: str) -> None:
@@ -150,13 +153,17 @@ def kernel_parity(tf, fm, shapes, record):
     """Every variant of both kernels against their twins, bitwise."""
     from repro_torch.core.strategies import CODEC_LEVELS, quantization_scale
     worst = {"threshold_find": 0.0, "fused_merge": 0.0}
-    cases = 0
+    cases, reads = 0, {}
     for seed, (c, n) in enumerate(shapes):
         x, e, ks, w, active = make_case(c, n, seed)
         for ef in (False, True):
             ee = e if ef else None
+            tf.threshold_find.reads_log = []
             th, am = tf.threshold_find(x, ks, ee, emit_scale=True)
             th2 = tf.threshold_find(x, ks, ee)
+            reads[f"C={c} n={n} ef={ef}"] = reads_of_x(
+                tf.threshold_find.reads_log)
+            tf.threshold_find.reads_log = None
             tp, ap = tf.threshold_find_plain(x, ks, ee, emit_scale=True)
             torch.cuda.synchronize()
             check(torch.equal(th, tp) and torch.equal(th2, tp),
@@ -189,6 +196,8 @@ def kernel_parity(tf, fm, shapes, record):
         del x, e
         torch.cuda.empty_cache()
     record["parity_cases"] = cases
+    record["threshold_parity_reads_of_x"] = reads
+    print(f"[parity] threshold_find reads of x per client {reads}")
     return worst
 
 
@@ -243,25 +252,50 @@ def threshold_rows():
     cases.append(("C=1 n=3", torch.tensor(
         [[float("nan"), 1.0, float("-inf")]], device="cuda"), None,
         torch.tensor([2], device="cuda", dtype=torch.int32)))
+    # large, tie-heavy rows: rows 0-3 hold 90% exact zeros, rows 4-5 a
+    # value repeated over half the row; k lands in the tie for some rows
+    # (a bin too large to compact: 3 reads) and past it for others (2)
+    c, n = BIG_TIES
+    x = torch.randn(c, n, device="cuda", generator=g)
+    x[:4, : n * 9 // 10] = 0.0
+    x[4:6, ::2] = 1.5
+    ks = torch.tensor([n // 2, n // 20, n, 1, n // 4, n // 10, n // 10, 7],
+                      device="cuda", dtype=torch.int32)
+    cases.append((f"C={c} n={n} tie-heavy rows", x, None, ks))
     return cases
+
+
+def reads_of_x(log):
+    """The reads of x the kernel reported per client, over the calls that
+    ``threshold_find.reads_log`` collected: {2: clients, 3: clients}."""
+    got = torch.cat(log).tolist() if log else []
+    return {r: got.count(r) for r in sorted(set(got))}
 
 
 def threshold_adversarial(tf, record):
     """``threshold_find`` on ``threshold_rows``: thresholds and absmax bit
-    for bit against the twin."""
-    n_cases = 0
+    for bit against the twin, with the reads of x each client took; the
+    tie-heavy case must take both branches (2 and 3 reads)."""
+    n_cases, reads = 0, {}
     for label, x, e, ks in threshold_rows():
+        tf.threshold_find.reads_log = []
         th, am = tf.threshold_find(x, ks, e, emit_scale=True)
         th2 = tf.threshold_find(x, ks, e)
+        tf.threshold_find.reads_log, log = None, tf.threshold_find.reads_log
         tp, ap = tf.threshold_find_plain(x, ks, e, emit_scale=True)
         torch.cuda.synchronize()
         check(torch.equal(th, tp) and torch.equal(th2, tp),
               f"threshold_find {label}: thresholds")
         check(bits_equal(am, ap), f"threshold_find {label}: absmax")
+        reads[label] = reads_of_x(log)
+        if "tie-heavy" in label:
+            check(set(reads[label]) == {2, 3},
+                  f"threshold_find {label}: both branches, {reads[label]}")
         n_cases += 1
     record["threshold_adversarial_cases"] = n_cases
+    record["threshold_adversarial_reads_of_x"] = reads
     print(f"[parity] threshold_find adversarial rows: {n_cases} cases "
-          "bitwise equal")
+          f"bitwise equal; reads of x per client {reads}")
 
 
 def threshold_launches_per_call(tf, record):
@@ -515,6 +549,7 @@ def run_paths(kern, record):
     the paths, per kernel."""
     from repro_torch.core.aggregation import AggregationConfig
     from repro_torch.fed.simulation import FLSimConfig, cohort_slots, run_fl
+    from repro_torch.kernels import threshold_find as tf
     zero = {name: 0 for name in kern}
     total = dict(zero)
     paths = {}
@@ -537,10 +572,21 @@ def run_paths(kern, record):
               f"accuracies {res.accuracies} launches "
               f"{ {k: v for k, v in counts.items() if v} }")
 
-    # the fused engine, global Top-K: threshold_find + fused_merge a round
+    # the fused engine, global Top-K: threshold_find + fused_merge a round,
+    # with the reads of x each threshold_find call took per client
+    tf.threshold_find.reads_log = []
     for s in STRATEGIES:
         one_run(f"fused {s}", AggregationConfig(strategy=s), "fused",
                 {"threshold_find": ROUNDS, "fused_merge": ROUNDS})
+    log, tf.threshold_find.reads_log = tf.threshold_find.reads_log, None
+    per_call = [int(r.max()) for r in log]
+    check(len(log) == ROUNDS * len(STRATEGIES),
+          f"threshold_find reported its reads of x on {len(log)} calls")
+    record["main_path_reads_of_x"] = dict(
+        calls=len(log), per_client=reads_of_x(log),
+        per_call_max=max(per_call), per_call_mean=sum(per_call) / len(log))
+    print(f"[path] threshold_find on the fused paths: reads of x "
+          f"{record['main_path_reads_of_x']}")
     # the legacy engine, block Top-K: block_topk once per selected client,
     # overlap_combine once a round for the OPWA strategy
     cohort = cohort_slots(FLSimConfig().n_clients,
@@ -853,19 +899,48 @@ def bf16_ulp(a, b):
     return torch.pow(2.0, (e - 8).double())
 
 
-def wgmma_agreement(got, want, q, k, v, p_roundings):
-    """The wgmma route's stated bound (``flash_attention.wgmma_bound``,
-    derived in ``csrc/flash_attention_wgmma.cu`` before the first run):
-    |got - want| <= wgmma_bound + one bf16 ULP of the larger magnitude.
-    ``p_roundings`` 2: kernel against its twin (each rounds P); 1: the twin
-    against the f32 twin. Returns (ok, max |d|, the largest |d| / limit)."""
-    from repro_torch.kernels import flash_attention as fa
+def wgmma_agreement(got, want, bound):
+    """The wgmma route's stated bound (``flash_attention.
+    wgmma_twin_and_bound``, derived in ``csrc/flash_attention_wgmma.cu``):
+    |got - want| <= bound + one bf16 ULP of the larger magnitude. Returns
+    (ok, max |d|, the largest |d| / limit)."""
     diff = (got.double() - want.double()).abs()
-    mag = torch.maximum(got.double().abs(), want.double().abs())
-    limit = fa.wgmma_bound(q, k, v, mag, p_roundings=p_roundings) + \
-        bf16_ulp(got, want)
+    limit = bound + bf16_ulp(got, want)
     return (bool((diff <= limit).all()), float(diff.max()),
             float((diff / limit).max()))
+
+
+#: the planted fault: the key tile of 64 a faulty kernel skips, at the
+#: middle of the longest FLASH_CASES sequence (keys 16384..16447 at 32k)
+def fault_tile(sk: int) -> int:
+    return sk // 64 // 2
+
+
+def twin_without_key_tile(q, k, v, tile, causal):
+    """The wgmma twin's arithmetic with one key tile of 64 left out: what
+    a kernel that skips that tile (a ring-phase slip, a wrong tile count)
+    would return."""
+    from repro_torch.kernels import flash_attention as fa
+    bh, sq, d = q.shape
+    qf = q.float()
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq), fa.NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    for k0 in range(0, k.shape[1], 64):
+        if k0 // 64 == tile:
+            continue
+        s = (qf @ k[:, k0:k0 + 64].float().transpose(1, 2)) / d ** 0.5
+        if causal:
+            k_pos = k0 + torch.arange(64, device=q.device)[None, :]
+            s = torch.where(q_pos >= k_pos, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + 64].float()
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
 
 
 def flash_case(label, b, sq, sk, h, hkv, d, dtype, causal, seed):
@@ -919,12 +994,13 @@ def flash_parity_and_timings(record):
     within the summation-order bound; bf16 within it plus one bf16 ULP, and
     equal bit for bit to the f32 kernel on the upcasts, rounded. The wgmma
     kernel (every bf16 case: D 64 and 128, padded to 128) against its twin
-    within ``wgmma_bound(p_roundings=2)`` plus one bf16 ULP, and that twin
-    against the f32 twin on the upcasts within ``wgmma_bound(p_roundings=1)``
-    plus one bf16 ULP. The ragged cases also go through
-    ``ops.flash_attention``, which must return the padded kernel call's rows
-    (the wgmma kernel's in bf16). Timed: the serve shape, yi-9b's heads and
-    32k, kernel, twin and SDPA."""
+    within ``wgmma_twin_and_bound`` plus one bf16 ULP, and that twin against
+    the f32 twin on the upcasts within its ``both_round=False`` bound plus
+    one bf16 ULP; at the serve shape and 32k the check must also reject the
+    twin's output with the middle key tile left out (a planted fault). The
+    ragged cases also go through ``ops.flash_attention``, which must return
+    the padded kernel call's rows (the wgmma kernel's in bf16). Timed: the
+    serve shape, yi-9b's heads and 32k, kernel, twin and SDPA."""
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -961,25 +1037,41 @@ def flash_parity_and_timings(record):
             check(ok32, f"flash_attention {name} upcast to f32: max |d| "
                         f"{err32:.3g} > bound {bound:.3g}")
             # the wgmma route: kernel against its twin, twin against f32
-            wg = fa.flash_attention_wgmma(qb, kb, vb, causal=causal)
-            wg_twin = fa.flash_attention_wgmma_plain(qb, kb, vb,
+            wg = fa.flash_attention_wgmma_cuda(qb, kb, vb, causal=causal)
+            wg_twin, bound = fa.wgmma_twin_and_bound(qb, kb, vb,
                                                      causal=causal)
             torch.cuda.synchronize()
-            ok_k, err_k, r_k = wgmma_agreement(wg, wg_twin, qb, kb, vb, 2)
+            ok_k, err_k, r_k = wgmma_agreement(wg, wg_twin, bound)
             check(ok_k, f"flash_attention_wgmma {name}: max |d| {err_k:.3g}, "
                         f"{r_k:.3g} of its bound")
-            ok_t, err_t, r_t = wgmma_agreement(wg_twin, twin32, qb, kb, vb, 1)
+            twin1, bound1 = fa.wgmma_twin_and_bound(
+                qb, kb, vb, causal=causal, both_round=False)
+            ok_t, err_t, r_t = wgmma_agreement(twin1, twin32, bound1)
             check(ok_t, f"flash_attention_wgmma twin {name} vs f32 twin: "
                         f"max |d| {err_t:.3g}, {r_t:.3g} of its bound")
             worst_wg = max(worst_wg, err_k)
             entry.update(max_bf16_ulps=ulps, f32_upcast_max_abs_err=err32,
                          wgmma_max_abs_err=err_k, wgmma_share_of_bound=r_k,
+                         wgmma_bound_median=float(bound.median()),
                          wgmma_twin_vs_f32_max_abs=err_t,
                          wgmma_twin_share_of_bound=r_t)
             msg += (f"; bf16 == bf16(f32 kernel); f32 upcast max |d| "
                     f"{err32:.3g}; wgmma vs its twin {err_k:.3g} ({r_k:.3g} "
                     f"of bound), twin vs f32 twin {err_t:.3g} ({r_t:.3g})")
-            del up, twin32, wg_twin
+            if label in ("serve", "32k"):
+                # the check must reject a kernel that skips one key tile
+                tile = fault_tile(kb.shape[1])
+                bad = twin_without_key_tile(qb, kb, vb, tile, causal)
+                ok_f, err_f, r_f = wgmma_agreement(bad, wg_twin, bound)
+                check(not ok_f, f"flash_attention_wgmma {name}: the check "
+                                f"passes a kernel that skips key tile {tile}")
+                entry.update(planted_fault=f"key tile {tile} skipped",
+                             planted_fault_max_abs=err_f,
+                             planted_fault_share_of_bound=r_f)
+                msg += (f"; skipping key tile {tile} gives {err_f:.3g} "
+                        f"({r_f:.3g} of bound): rejected")
+                del bad
+            del up, twin32, wg_twin, bound, twin1, bound1
         if label == "ragged":
             entry_out = ops.flash_attention(q, k, v, causal=causal)
             ref = wg if dtype == torch.bfloat16 else got
@@ -999,7 +1091,7 @@ def flash_parity_and_timings(record):
             if dtype == torch.bfloat16:
                 rows.append(flash_timing(
                     "flash_attention_wgmma", *args,
-                    lambda: fa.flash_attention_wgmma(qb, kb, vb),
+                    lambda: fa.flash_attention_wgmma_cuda(qb, kb, vb),
                     lambda: fa.flash_attention_wgmma_plain(qb, kb, vb)))
         del q, k, v, qb, kb, vb, got, want
         if dtype == torch.bfloat16:
@@ -1234,7 +1326,11 @@ def main() -> int:
     modules = {"threshold_find": tf, "fused_merge": fm, "overlap_combine": oc,
                "block_topk": bt, "ef_update": eu, "flash_attention": fa,
                "flash_attention_wgmma": fa}
-    kern = {name: getattr(mod, name) for name, mod in modules.items()}
+    # each kernel's launch counter lives on the function that launches it
+    # (the entry point's name, or flash_attention_wgmma_cuda)
+    kern = {name: getattr(mod, name if name != "flash_attention_wgmma"
+                          else "flash_attention_wgmma_cuda")
+            for name, mod in modules.items()}
     check(tuple(sorted(build.KERNELS)) == tuple(sorted(kern)),
           "chip_smoke covers every kernel that build.KERNELS lists")
 
@@ -1295,7 +1391,8 @@ def main() -> int:
     for name, replaces in sources.items():
         m, lf = main_rows[name], leaf_rows[name]
         extra = (dict(launches_per_call=record[
-            "threshold_find_launches_per_call"], reads_of_x=3)
+            "threshold_find_launches_per_call"],
+            reads_of_x=record["main_path_reads_of_x"])
                  if name == "threshold_find" else {})
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
@@ -1338,9 +1435,9 @@ def main() -> int:
         yi9b_bound_ms=yi["bound_ms"], yi9b_library_ms=yi["library_ms"],
         ms_32k=big["ms"], plain_ms_32k=big["plain_ms"],
         bound_ms_32k=big["bound_ms"], library_ms_32k=big["library_ms"],
-        parity="within wgmma_bound(p_roundings=2) + 1 bf16 ULP of its twin; "
-               "twin within wgmma_bound(p_roundings=1) + 1 ULP of the f32 "
-               "twin"))
+        parity="within wgmma_twin_and_bound + 1 bf16 ULP of its twin; twin "
+               "within wgmma_twin_and_bound(both_round=False) + 1 ULP of the "
+               "f32 twin; the check rejects a skipped key tile"))
     record["kernels"] = kernels
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

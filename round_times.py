@@ -1,0 +1,130 @@
+"""Wall time per round of the port's fused FL path on one CUDA card, and
+where the card's time per round goes, by kernel, under ``torch.profiler``.
+
+    python3 round_times.py [--src DIR] [--out PATH]
+
+For each of ``STRATEGIES``: ``run_fl(engine="fused")`` at the simulation
+MLP's full width (``FLSimConfig()`` defaults, cohort 5) for ``ROUNDS``
+rounds, host clock per round as ``run_fl`` records it, and the host time
+spent inside ``threshold_find_cuda`` (its checks, allocations and
+launches; host clock, no synchronisation) per call; then
+``PROFILE_ROUNDS`` more rounds under the profiler, device time summed by
+kernel name a round, with the kernels of ``threshold_find`` (the radix
+passes, or the older sweep and finalize kernels) and the memsets totalled
+apart. ``--src`` names the ``src``
+directory of the tree to time (default: this checkout's), so one card can
+time two trees in alternation: parent, change, change, parent, each its own
+process. Prints one JSON line; ``--out`` also writes it to a file. Needs
+CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import sys
+import time
+
+import torch
+
+#: kernels of threshold_find, in this tree and in the one before the radix
+#: select (8 sweeps and a finalize)
+THRESHOLD_KERNELS = re.compile(r"radix_pass|count_kernel|finalize_kernel")
+#: the fused path's strategies: global Top-K, with EF, with the int8 codec
+STRATEGIES = ("bcrs_opwa", "eftopk", "qtopk")
+ROUNDS, PROFILE_ROUNDS = 30, 5
+
+
+def profile_rounds(run_fl, sim, acfg):
+    """Device ms per round by kernel name over ``sim.rounds`` rounds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_fl(sim, acfg, engine="fused", device="cuda")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_round = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            per_round[ev.key] = ev.self_device_time_total / 1e3 / sim.rounds
+    tf_ms = sum(ms for k, ms in per_round.items()
+                if THRESHOLD_KERNELS.search(k))
+    memset_ms = sum(ms for k, ms in per_round.items() if "emset" in k)
+    busy = sum(per_round.values())
+    top = sorted(per_round.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        wall_ms_per_round_under_profiler=wall_ms / sim.rounds,
+        round_wall_ms=[t * 1e3 for t in res.wall_per_round],
+        device_ms_per_round=busy if per_round else "not measured",
+        threshold_find_device_ms_per_round=(tf_ms if per_round
+                                            else "not measured"),
+        memset_device_ms_per_round=(memset_ms if per_round
+                                    else "not measured"),
+        top_kernels_ms_per_round={k[:80]: v for k, v in top})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("round_times: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.fed.simulation import FLSimConfig, run_fl
+    from repro_torch.kernels import build
+    from repro_torch.kernels import threshold_find as tf
+    build.build()
+    host_ms = []
+    launch = tf.threshold_find_cuda
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = launch(*a, **kw)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    tf.threshold_find_cuda = timed
+    out = dict(src=os.path.abspath(args.src), rounds=ROUNDS,
+               gpu=torch.cuda.get_device_name(0), strategies={})
+    for s in STRATEGIES:
+        acfg = AggregationConfig(strategy=s)
+        host_ms.clear()
+        res = run_fl(FLSimConfig(rounds=ROUNDS), acfg, engine="fused",
+                     device="cuda")
+        walls = [t * 1e3 for t in res.wall_per_round]
+        calls = list(host_ms[1:])          # the first call loads the library
+        steady = walls[1:]          # round 0 carries the first staging
+        prof = profile_rounds(run_fl, FLSimConfig(rounds=PROFILE_ROUNDS),
+                              acfg)
+        out["strategies"][s] = dict(
+            wall_ms=walls, median_ms=statistics.median(steady),
+            mean_ms=statistics.fmean(steady), min_ms=min(steady),
+            max_ms=max(steady), profile=prof,
+            threshold_find_host_ms_per_call=dict(
+                calls=len(calls), median=statistics.median(calls),
+                mean=statistics.fmean(calls)))
+        print(f"[rounds] {s}: median {statistics.median(steady):.4f} ms, "
+              f"min {min(steady):.4f}, max {max(steady):.4f} over "
+              f"{len(steady)} rounds; threshold_find device "
+              f"{prof['threshold_find_device_ms_per_round']} ms a round, "
+              f"host {statistics.median(calls):.4f} ms a call",
+              file=sys.stderr)
+    line = json.dumps(out)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

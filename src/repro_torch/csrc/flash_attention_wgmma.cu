@@ -25,23 +25,47 @@
 // skipped (they would add p = 0 at alpha = 1), heavier query tiles launch
 // first.
 //
-// Agreement (stated before the first run on the card). The twin differs
-// from the kernel only in the order of its f32 sums, which the tensor cores
-// do not specify; taken at its worst, each f32 add may lose a full ulp
-// (truncation), u = 2^-23. That moves each score by at most
-// ds = (D + 2) * u * D * max|q| * max|k| * scale, and a score moved by ds
-// can flip the bf16 rounding of its p. Every weight p^ * (product of later
-// alphas) then differs between the two by a relative
-//   eps = 2 * 2^-8 + ds + 2^-16 + (Sk/64 + 1) * 2^-21
-// (two bf16 roundings; the score; expf and s - m; expf of each alpha and
-// the rescaling multiplies) up to a factor common to all keys: the running
-// max cancels. A convex combination whose weights move by eps moves by at
-// most eps / (1 - eps) * (max_j |v_jd| + |o_d|), and the f32 sums of
-// numerator and denominator add (Sk + D + 8) * u times the same. Each side
-// rounds its own output to bf16: one bf16 ULP of the larger of the two on
-// top. The twin is held to the reference (no P rounding, q scaled before
-// the dot product) by the same formula with one 2^-8 in eps
-// (kernels/flash_attention.wgmma_bound).
+// Agreement. The twin differs from the kernel only in the order of its
+// f32 sums, which the tensor cores do not specify. Taken at its worst, a
+// wgmma k-step of 16 adds 17 terms and each may lose one ulp (2^-23,
+// truncation) of the largest of them; a round-to-nearest GEMM loses half
+// an ulp an add. Per row, with the twin's own weights w_j (p^_j times the
+// later alphas, over l), S = sum_j w_j |v_j| and o the twin's f32 output:
+//
+//  * scores: the two sides' s differ by at most
+//    ds = (17 D / 16 + D / 2 + 4) * 2^-23 * scale * |q_row| * max_j |k_j|
+//    (Cauchy-Schwarz bounds sum_i |q_i k_i|), so the running maxima differ
+//    by at most ds, and p before its rounding by a factor within e^(+-r),
+//    r = 2 ds + 2^-21 (expf, 2 ulp a side) + 2^-23 (m - s) (the subtract);
+//  * P: bf16(p) is the same on both sides unless a bf16 rounding boundary
+//    lies in p * e^(+-r); the twin finds the keys where one does ("flips";
+//    about r / 2^-7.5 of them) and there the two p^ differ by at most one
+//    bf16 ULP, 2^-7 (1 + 2^-7) of p^. Keys with p < 2^-100 (no relative
+//    guarantee) add at most Sk * 2^-99 * (max|v| + |o|);
+//  * every key's weight also moves by eta = ds (the running max the alphas
+//    carry) + 2^-20 for each tile that may move the max on either side
+//    (its max within 2 ds of the running one; expf and two products a
+//    side) + 2^-23 * (m_final - m_first) (the alphas' subtractions), up
+//    to a factor common to all keys, which the normalisation cancels;
+//  * a convex combination whose weights move by delta_j moves by at most
+//    sum_j w_j delta_j |v_j - o| / (1 - max delta): here
+//    (eta (S + |o|) + 2^-7 (1 + 2^-7) (F + F1 |o|)) / (1 - delta), with F
+//    and F1 the sums of w_j |v_j| and w_j over the flips;
+//  * the f32 sums: a tile's 4 k-steps lose at most 68 ulps of the largest
+//    magnitude they meet, at most |acc| at the tile's start plus the
+//    tile's sum p^ |v|; summed over the tiles a row takes (Z), both sides:
+//    2 * 68 * 2^-23 * Z / l; l's sums and the division add
+//    (2 Sk / 64 + 140) * 2^-23 * |o|.
+//
+// Each side rounds its own output to bf16: one bf16 ULP of the larger of
+// the two on top. The twin is held to the reference (P kept in f32, q
+// scaled before the dot product) by the same terms with 2^-8 (1 + 2^-7)
+// (S + |o|) in place of the flip term (only the twin rounds, every key)
+// and eta + 2^-21 + 70 * 2^-23 (p's expf and subtraction, p >= 2^-100).
+// kernels/flash_attention.wgmma_twin_and_bound computes the twin and this
+// bound together, from the twin's own weights; the bound takes the twin's
+// arithmetic, so it adds no tolerance for a kernel that drops, repeats or
+// misweights a key tile.
 //
 // Design (right first; warp specialisation with setmaxnreg, ping-pong
 // between warpgroups and persistence are later work). One CTA of 288

@@ -14,9 +14,12 @@
 //   pass 1  histogram of bits >> 20 (2048 bins) over the whole row, and the
 //           row absmax (atomicMax on the non-negative pattern);
 //   pass 2  histogram of (bits >> 9) & 2047 over the elements whose top 11
-//           bits are the bin pass 1 chose; those elements' patterns are
-//           also compacted into a candidate buffer of n/8 a client when the
-//           bin holds no more than that (pass 1's count says so);
+//           bits are the bin pass 1 chose; when that bin holds no more
+//           than n/8 of the row (pass 1's count says so) those elements'
+//           patterns are also compacted into a candidate buffer of n/8 a
+//           client, exactly: a warp stages them in shared memory and
+//           writes each full stage with one global atomic on the client's
+//           cursor;
 //   pass 3  histogram of bits & 511 over the elements whose top 22 bits are
 //           the prefix passes 1 and 2 chose, read from the candidates when
 //           pass 2 compacted them, else from x again.
@@ -29,24 +32,28 @@
 // __threadfence, then an atomic counter) picks the bin where the suffix
 // count from the top first reaches k, and hands the prefix, the rank left
 // inside that bin and the bin's count to the next pass; the last block of
-// pass 3 writes the threshold, and that of pass 1 the absmax. A row with
-// fewer than k elements (k > n) picks bin 0 in every pass, threshold 0, as
-// the twin gives. Patterns compare as unsigned values, as before, so NaN
-// and inf patterns (0x7f800000 and above) order exactly as in the twin.
+// pass 3 writes the threshold (and, when asked, the reads of x the client
+// took), and that of pass 1 the absmax. A row with fewer than k elements
+// (k > n) picks bin 0 in every pass, threshold 0, as the twin gives.
+// Patterns compare as unsigned values, as before, so NaN and inf patterns
+// (0x7f800000 and above) order exactly as in the twin.
 //
 // A call is 4 launches (one memset of the scratch, three passes) and reads
-// x (and e) 2 times, 3 when a client's chosen bin holds more than n/8 of
-// its elements (ties, all-equal rows); the previous design (8 sweeps) took
-// 11 launches and 8 reads. The ragged edge is masked in the loop, never
-// padded; float4 reads where every row is 16-byte aligned (n % 4 == 0 and
-// aligned bases).
+// x (and e) 2 times for a client whose chosen top-11-bit bin holds at most
+// n/8 of its elements, 3 times otherwise (a bin that large: ties, zeros,
+// all-equal rows); the previous design (8 sweeps) took 11 launches and 8
+// reads. With magnitudes spread over many binades (an update, Top-K at a
+// cr of 0.1) the bin holds a few percent of the row. The ragged edge is
+// masked in the loop, never padded; float4 reads where every row is
+// 16-byte aligned (n % 4 == 0 and aligned bases).
 //
 // Bound on the card: bytes. The least the card could do is one read of x
-// (C*n*4 bytes, twice with EF); this design reads 2 times. Each thread
-// keeps 4 float4 loads in flight before it counts them. A few exponents
-// hold most of the magnitudes, so pass 1's shared-memory atomics meet on a
-// handful of hot bins; aggregating equal bins of a warp first
-// (__match_any_sync) measured slower on the card.
+// (C*n*4 bytes, twice with EF); this design reads 2 times, 3 for a client
+// whose bin is too large. Each thread keeps 4 float4 loads in flight
+// before it counts them. A few exponents hold most of the magnitudes, so
+// pass 1's shared-memory atomics meet on a handful of hot bins;
+// aggregating equal bins of a warp first (__match_any_sync) measured
+// slower on the card.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the last launch.
@@ -58,8 +65,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int BINS = 2048;                 // the widest digit: 11 bits
 constexpr int UNROLL = 4;                  // float4 loads in flight a thread
-constexpr int CHUNK = 256;                 // candidate slots a warp reserves
-constexpr unsigned NONE = 0xffffffffu;     // an empty slot: no prefix is 2^22
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGE = 128;                 // candidates a warp stages
 
 // Scratch, int32, zeroed by one memset: the three global histograms, the
 // three ticket counters, the absmax pattern, the candidate cursors and the
@@ -161,7 +168,8 @@ __global__ void __launch_bounds__(THREADS)
 radix_pass(const float* __restrict__ x, const float* __restrict__ e,
            const int* __restrict__ ks, int* __restrict__ scratch,
            unsigned* __restrict__ cand, int* __restrict__ th,
-           float* __restrict__ absmax_out, long long n, int C) {
+           float* __restrict__ absmax_out, int* __restrict__ reads,
+           long long n, int C) {
   using D = Digit<PASS>;
   const Layout L{C};
   const int c = blockIdx.y;
@@ -174,18 +182,16 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
   if (threadIdx.x == 0) s_amax = 0u;
   const int* in = PASS == 1 ? nullptr : L.sel(scratch, PASS - 1, c);
   const unsigned prefix = PASS == 1 ? 0u : (unsigned)in[0];
-  // pass 1's bin fits the candidate buffer: pass 2 fills it, pass 3 reads
-  // it instead of x. A warp's chunks hold more than CHUNK - 32 candidates
-  // each but its last, so the reserved slots stay below
-  // count * CHUNK / (CHUNK - 32) + warps * CHUNK.
+  // pass 1's bin fits the candidate buffer: pass 2 fills it with exactly
+  // the bin's elements, pass 3 reads them instead of x
   const long long cap = cand_cap(n);
   const int* first = PASS == 1 ? nullptr : L.sel(scratch, 1, c);
-  const long long warps = (long long)gridDim.x * (THREADS / 32);
-  const bool compact =
-      PASS != 1 && (long long)first[2] + first[2] / 7 + 1 + warps * CHUNK
-                       <= cap;
+  const long long count = PASS == 1 ? 0 : first[2];
+  const bool compact = PASS != 1 && count <= cap;
   unsigned* my_cand = cand + (size_t)c * cap;
   int* cursor = L.cursor(scratch) + c;
+  __shared__ unsigned s_stage[PASS == 2 ? WARPS * STAGE : 1];
+  unsigned* stage = s_stage + (PASS == 2 ? (threadIdx.x >> 5) * STAGE : 0);
   __syncthreads();
 
   unsigned amax = 0u;
@@ -201,26 +207,25 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
     }
     return false;
   };
-  // pass 2, warp-collective: append the lanes' taken patterns to the
-  // warp's current chunk of CHUNK slots, reserving a new chunk from the
-  // client's cursor (one global atomic a chunk) when they do not fit and
-  // filling the old chunk's tail with NONE, which no prefix matches
-  int w_base = 0, w_used = 0, w_size = 0;      // the same in every lane
+  // pass 2, warp-collective: the warp's staged candidates go to the
+  // client's buffer at a cursor it advances by their number (one global
+  // atomic a stage), so the buffer ends holding each of them once
+  int w_used = 0;                              // the same in every lane
+  auto flush = [&]() {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(cursor, w_used);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    for (int j = lane; j < w_used; j += 32) my_cand[base + j] = stage[j];
+    __syncwarp();
+    w_used = 0;
+  };
   auto append = [&](unsigned bits, bool take) {
     const unsigned m = __ballot_sync(0xffffffffu, take);
     if (m == 0u) return;
     const int cnt = __popc(m);
-    if (w_used + cnt > w_size) {
-      for (int j = w_used + lane; j < w_size; j += 32)
-        my_cand[w_base + j] = NONE;
-      int base = 0;
-      if (lane == 0) base = atomicAdd(cursor, CHUNK);
-      w_base = __shfl_sync(0xffffffffu, base, 0);
-      w_used = 0;
-      w_size = CHUNK;
-    }
-    if (take) my_cand[w_base + w_used + __popc(m & ((1u << lane) - 1u))] =
-        bits;
+    if (w_used + cnt > STAGE) flush();
+    if (take) stage[w_used + __popc(m & ((1u << lane) - 1u))] = bits;
+    __syncwarp();
     w_used += cnt;
   };
   auto pattern = [](float v) { return __float_as_uint(fabsf(v)); };
@@ -230,7 +235,6 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
   const long long w_start =
       (long long)blockIdx.x * blockDim.x + threadIdx.x - lane;
   if (PASS == 3 && compact) {
-    const long long count = *cursor;           // every reserved slot
     for (long long w0 = w_start; w0 < count; w0 += stride)
       if (w0 + lane < count) visit(my_cand[w0 + lane]);
   } else if (VEC) {
@@ -300,8 +304,7 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
     const unsigned m = warp_max(amax);
     if (lane == 0) atomicMax(&s_amax, m);
   }
-  if (PASS == 2 && compact)
-    for (int j = w_used + lane; j < w_size; j += 32) my_cand[w_base + j] = NONE;
+  if (PASS == 2 && compact && w_used > 0) flush();
   __syncthreads();
 
   int* gh = L.hist(scratch, PASS, c);
@@ -323,6 +326,7 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
     const unsigned p = (prefix << D::BITS) | (unsigned)bin;
     if (PASS == 3) {
       th[c] = (int)p;
+      if (reads != nullptr) reads[c] = compact ? 2 : 3;
     } else {
       int* out = L.sel(scratch, PASS, c);
       out[0] = (int)p;
@@ -337,18 +341,18 @@ radix_pass(const float* __restrict__ x, const float* __restrict__ e,
 template <bool EF, bool VEC>
 cudaError_t run_passes(dim3 grid, cudaStream_t st, const float* x,
                        const float* e, const int* ks, int* scratch,
-                       unsigned* cand, int* th, float* absmax, long long n,
-                       int C) {
+                       unsigned* cand, int* th, float* absmax, int* reads,
+                       long long n, int C) {
   radix_pass<1, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
-                                                   th, absmax, n, C);
+                                                   th, absmax, reads, n, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   radix_pass<2, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
-                                                   th, absmax, n, C);
+                                                   th, absmax, reads, n, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   radix_pass<3, EF, VEC><<<grid, THREADS, 0, st>>>(x, e, ks, scratch, cand,
-                                                   th, absmax, n, C);
+                                                   th, absmax, reads, n, C);
   return cudaGetLastError();
 }
 
@@ -366,12 +370,13 @@ extern "C" long long threshold_find_cand_ints(int C, long long n) {
 
 // x, e: [C, n] f32 contiguous (e may be null: no EF); ks: [C] i32 with
 // 1 <= k <= n; th: [C] i32 out (the threshold pattern, always < 2^31);
-// absmax: [C] f32 out or null; scratch: threshold_find_scratch_ints(C) i32;
+// absmax: [C] f32 out or null; reads: [C] i32 out or null (the reads of x
+// each client took, 2 or 3); scratch: threshold_find_scratch_ints(C) i32;
 // cand: threshold_find_cand_ints(C, n) i32.
 extern "C" int threshold_find_launch(const void* x, const void* e,
                                      const void* ks, void* th, void* absmax,
-                                     void* scratch, void* cand, long long n,
-                                     int C, void* stream) {
+                                     void* reads, void* scratch, void* cand,
+                                     long long n, int C, void* stream) {
   if (n < 1 || C < 1 || C > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -380,6 +385,7 @@ extern "C" int threshold_find_launch(const void* x, const void* e,
   int* s = static_cast<int*>(scratch);
   unsigned* cd = static_cast<unsigned*>(cand);
   float* am = static_cast<float*>(absmax);
+  int* rd = static_cast<int*>(reads);
   int* t = static_cast<int*>(th);
 
   cudaError_t err =
@@ -395,12 +401,12 @@ extern "C" int threshold_find_launch(const void* x, const void* e,
   if (cap < 1) cap = 1;
   const dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)C);
   if (ef != nullptr)
-    return vec ? run_passes<true, true>(grid, st, xf, ef, k, s, cd, t, am, n,
-                                        C)
+    return vec ? run_passes<true, true>(grid, st, xf, ef, k, s, cd, t, am,
+                                        rd, n, C)
                : run_passes<true, false>(grid, st, xf, ef, k, s, cd, t, am,
-                                         n, C);
-  return vec ? run_passes<false, true>(grid, st, xf, ef, k, s, cd, t, am, n,
-                                       C)
-             : run_passes<false, false>(grid, st, xf, ef, k, s, cd, t, am, n,
-                                        C);
+                                         rd, n, C);
+  return vec ? run_passes<false, true>(grid, st, xf, ef, k, s, cd, t, am, rd,
+                                       n, C)
+             : run_passes<false, false>(grid, st, xf, ef, k, s, cd, t, am,
+                                        rd, n, C);
 }

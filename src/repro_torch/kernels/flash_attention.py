@@ -19,8 +19,8 @@ Two hand-written Hopper kernels, each with its plain PyTorch twin:
     on the tensor cores (``wgmma``, K and V streamed by TMA), D in
     ``WGMMA_HEAD_DIMS``; it must round P to bf16 for the PV product, and
     its twin ``flash_attention_wgmma_plain`` rounds where it rounds. The two
-    are held to each other, and the twin to the reference, within
-    ``wgmma_bound``.
+    are held to each other, and the twin to the reference, within the
+    bound ``wgmma_twin_and_bound`` computes from the twin's own weights.
 
 The f32 kernel sums in another order than its twin (its own key tiles, its
 own dot-product order), so the two agree within a stated bound, not bit for
@@ -36,14 +36,13 @@ with D in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0 and Sk % 64 == 0 (what
 ``ops.flash_attention`` gives at its default blocks), else
 ``flash_attention_cuda``. A kernel launches or raises: there is no
 fallback, to the other kernel or to a twin. Each kernel counts its own
-launches (``flash_attention.launches``, ``flash_attention_wgmma.launches``).
-``flash_attention_wgmma`` is the wgmma route alone: its twin for CPU
-tensors, its kernel for CUDA tensors.
+launches (``flash_attention.launches``,
+``flash_attention_wgmma_cuda.launches``).
 """
 from __future__ import annotations
 
 import ctypes
-import math
+from typing import Optional
 
 import torch
 
@@ -58,6 +57,18 @@ WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ, WGMMA_BK = 128, 64
 #: an f32 add on the tensor cores at its worst (truncation): one ulp
 U_SUM = 2.0 ** -23
+#: p below this carries no relative guarantee (bf16 denormals); such keys
+#: are held by an absolute term instead
+TINY_P = 2.0 ** -100
+
+
+def dot_u(d: int) -> float:
+    """Relative bound on the difference of two f32 dot products of length
+    d of the same bf16 operands, times sum |q_i k_i|: the tensor cores'
+    (a k-step of 16 adds 17 terms, each may lose an ulp of the largest)
+    plus a round-to-nearest GEMM's (half an ulp an add), plus the scale's
+    product on each side."""
+    return (17 * d / 16 + d / 2 + 4) * U_SUM
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,6 +101,74 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, both_round: Optional[bool]):
+    """The twin's arithmetic; with ``both_round`` set, also the sums over
+    the twin's own weights that ``wgmma_twin_and_bound`` needs."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    assert sk % WGMMA_BK == 0
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    qf = q.float()
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    carry = None
+    if both_round is not None:
+        # ds: the score difference between the two sides, per row
+        kmax = k.float().norm(dim=-1).amax(dim=1, keepdim=True)   # [BH, 1]
+        ds = dot_u(d) * scale * qf.norm(dim=-1) * kmax             # [BH, Sq]
+        z = torch.zeros_like(acc)          # sum of |acc| a summed tile sees
+        s_abs = torch.zeros_like(acc)      # sum_j p^_j |v_j| (alphas on)
+        f_abs = torch.zeros_like(acc)      # the same over keys that flip
+        f_one = torch.zeros_like(l)        # sum of p^_j over those keys
+        changes = torch.zeros_like(l)      # tiles that may move m
+        m_first = None
+    for k0 in range(0, sk, WGMMA_BK):
+        kb = k[:, k0:k0 + WGMMA_BK].float()
+        vb = v[:, k0:k0 + WGMMA_BK].float()
+        s = (qf @ kb.transpose(1, 2)) * scale
+        if causal:
+            k_pos = k0 + torch.arange(WGMMA_BK, device=dev)[None, :]
+            s = torch.where(q_pos >= k_pos, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        pb = p.to(torch.bfloat16).float()
+        alpha = torch.exp(m - m_new)
+        if both_round is not None:
+            live = ((q_pos >= k0).expand(bh, sq, 1) if causal
+                    else torch.ones((bh, sq, 1), dtype=torch.bool,
+                                    device=dev))
+            va = vb.abs()
+            z = torch.where(live, alpha[..., None] * (z + acc.abs())
+                            + pb @ va, z)
+            s_abs = s_abs * alpha[..., None] + pb @ va
+            if both_round:
+                # the other side's p lies within p * e^(+-r) before its
+                # bf16 rounding; a rounding boundary inside means a flip
+                r = (2 * ds[..., None] + 2.0 ** -21
+                     + 2.0 ** -23 * (m_new[..., None] - s) + 2.0 ** -19)
+                flip = ((p * (1 - r)).to(torch.bfloat16)
+                        != (p * (1 + r)).to(torch.bfloat16)) & (p >= TINY_P)
+                fp = pb * flip
+                f_abs = f_abs * alpha[..., None] + fp @ va
+                f_one = f_one * alpha + fp.sum(dim=-1)
+            if m_first is None:
+                m_first = m_new
+            else:
+                changes += (s.amax(dim=-1) >= m - 2 * ds).float()
+        l = l * alpha + pb.sum(dim=-1)
+        acc = acc * alpha[..., None] + pb @ vb
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    if both_round is not None:
+        carry = dict(ds=ds, z=z, s_abs=s_abs, f_abs=f_abs, f_one=f_one,
+                     changes=changes, m_span=m - m_first, l=l)
+    return o, carry
+
+
 def flash_attention_wgmma_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool = True
                                 ) -> torch.Tensor:
@@ -98,49 +177,52 @@ def flash_attention_wgmma_plain(q: torch.Tensor, k: torch.Tensor,
     after the dot product, as the kernel applies it), the -1e30 causal mask,
     the reference's m / l / alpha recurrence, P rounded to bf16 before it
     enters both ``l`` and the PV product, the output rounded to bf16."""
-    bh, sq, d = q.shape
-    sk = k.shape[1]
-    assert sk % WGMMA_BK == 0
-    scale = 1.0 / (d ** 0.5)
-    qf = q.float()
-    q_pos = torch.arange(sq, device=q.device)[:, None]
-    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((bh, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, sk, WGMMA_BK):
-        kb = k[:, k0:k0 + WGMMA_BK].float()
-        vb = v[:, k0:k0 + WGMMA_BK].float()
-        s = (qf @ kb.transpose(1, 2)) * scale
-        if causal:
-            k_pos = k0 + torch.arange(WGMMA_BK, device=q.device)[None, :]
-            s = torch.where(q_pos >= k_pos, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + p @ vb
-        m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+    return _wgmma_recurrence(q, k, v, causal, None)[0].to(torch.bfloat16)
 
 
-def wgmma_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                out: torch.Tensor, *, p_roundings: int) -> torch.Tensor:
-    """Elementwise bound on |a - b| between two outputs of the wgmma route's
-    arithmetic, before each side's own rounding of its output to bf16 (add
-    one bf16 ULP of the larger of the two for that). ``p_roundings`` is the
-    number of sides that round P to bf16: 2 for the kernel against its
-    twin, 1 for the twin against the reference (``csrc/
-    flash_attention_wgmma.cu`` derives it). ``out`` is either output, [BH,
-    Sq, D]; the bound is f64."""
-    bh, sq, d = q.shape
+def wgmma_twin_and_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, both_round: bool = True):
+    """The twin's output (``flash_attention_wgmma_plain``'s, bit for bit)
+    and an elementwise f64 bound [BH, Sq, D] on how far another output of
+    the same function may lie from it before each side rounds its output
+    to bf16 (add one bf16 ULP of the larger of the two for that).
+    ``both_round``: the other side rounds P to bf16 as well (the kernel);
+    False: it keeps P in f32 (the reference, the f32 twin).
+
+    Derived in ``csrc/flash_attention_wgmma.cu``: per row, with w_j the
+    twin's own softmax weights, S = sum_j w_j |v_j|, F = the same sum over
+    the keys whose bf16 rounding of p may differ between the two sides
+    (both_round; a rounding boundary lies within p's uncertainty), F1 their
+    weight, Z/l the tiles' running |acc| and eta the relative change every
+    weight may take besides its rounding (score order, the alpha chain):
+    ``(eta (S + |o|) + 2^-7 (1 + 2^-7) (F + F1 |o|)) / (1 - delta)`` (or
+    ``2^-8 (1 + 2^-7) (S + |o|)`` in place of the flip term when only the
+    twin rounds), plus the two sides' f32 sums on the tensor cores' worst
+    case, ``2 * 17 * (BK / 16) * u * Z / l + (2 Sk / BK + 140) u |o|``."""
+    o, cr = _wgmma_recurrence(q, k, v, causal, bool(both_round))
     sk = k.shape[1]
-    qm = q.double().abs().amax(dim=(1, 2))
-    km = k.double().abs().amax(dim=(1, 2))
-    ds = (d + 2) * U_SUM * d * qm * km / math.sqrt(d)
-    eps = (p_roundings * 2.0 ** -8 + ds + 2.0 ** -16
-           + (sk / WGMMA_BK + 1) * 2.0 ** -21)
-    mag = v.double().abs().amax(dim=1)[:, None, :] + out.double().abs()
-    return ((eps / (1 - eps))[:, None, None] + (sk + d + 8) * U_SUM) * mag
+    n_kt = sk // WGMMA_BK
+    l = cr["l"].double().clamp_min(1e-30)[..., None]
+    oa = o.double().abs()
+    s_abs, z = cr["s_abs"].double() / l, cr["z"].double() / l
+    eta = (cr["ds"].double() + cr["changes"].double() * 2.0 ** -20
+           + 2.0 ** -23 * cr["m_span"].double())[..., None]
+    if both_round:
+        rounding = 2.0 ** -7 * (1 + 2.0 ** -7) * (
+            cr["f_abs"].double() / l + cr["f_one"].double()[..., None]
+            / l * oa)
+        delta = eta + 2.0 ** -7 * (1 + 2.0 ** -7)
+    else:
+        eta = eta + 2.0 ** -21 + 70 * 2.0 ** -23
+        rounding = 2.0 ** -8 * (1 + 2.0 ** -7) * (s_abs + oa)
+        delta = eta + 2.0 ** -8 * (1 + 2.0 ** -7)
+    weights = (eta * (s_abs + oa) + rounding) / (1 - delta)
+    sums = ((2 * 17 * (WGMMA_BK // 16) * U_SUM * z
+             + (2 * n_kt + 140) * U_SUM * oa) * (1 + delta) / (1 - delta))
+    vmax = v.double().abs().amax(dim=1, keepdim=True)
+    tiny = sk * 2.0 ** -99 * (vmax + oa)
+    return (o.to(torch.bfloat16),
+            (weights + sums + tiny) * (1 + 2.0 ** -10))
 
 
 def takes_wgmma(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -238,19 +320,8 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                  bh, sq, k.shape[1], d, int(bool(causal)),
                  1.0 / (d ** 0.5), stream)
     build.check(err, "flash_attention_wgmma")
-    flash_attention_wgmma.launches += 1
+    flash_attention_wgmma_cuda.launches += 1
     return out
-
-
-def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
-    """The wgmma route alone: bf16 [BH, Sq, D] q and [BH, Sk, D] k, v with D
-    in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0, Sk % 64 == 0. CPU tensors take
-    its twin; CUDA tensors launch the kernel (counted in
-    ``flash_attention_wgmma.launches``)."""
-    if q.device.type == "cpu":
-        return flash_attention_wgmma_plain(q, k, v, causal=causal)
-    return flash_attention_wgmma_cuda(q, k, v, causal=causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -262,7 +333,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns [BH, Sq, D] in q's dtype. CPU tensors take the plain twin
     ``flash_attention_plain``. CUDA tensors go to the wgmma kernel when
     ``takes_wgmma`` (bf16, D in ``WGMMA_HEAD_DIMS``, Sq % 128 == 0,
-    Sk % 64 == 0), counted in ``flash_attention_wgmma.launches``, and to
+    Sk % 64 == 0), counted in ``flash_attention_wgmma_cuda.launches``, and to
     ``flash_attention_cuda`` otherwise (f32, other head dims, other
     blocks), counted in ``flash_attention.launches``."""
     if q.device.type == "cpu":
@@ -278,4 +349,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: kernel launches (one per call that reaches csrc/flash_attention.cu)
 flash_attention.launches = 0
 #: kernel launches (one per call that reaches csrc/flash_attention_wgmma.cu)
-flash_attention_wgmma.launches = 0
+flash_attention_wgmma_cuda.launches = 0

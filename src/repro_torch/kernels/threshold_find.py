@@ -16,7 +16,8 @@ searches give the same bits:
     blocks add integer counts atomically (a deterministic result); the last
     pass reads the second's compacted candidates, or x again when the
     chosen bin holds more than n/8 of a row; 4 launches a call, counting
-    the memset of its scratch, and 2 or 3 reads of x;
+    the memset of its scratch, and 2 reads of x for a client, 3 when its
+    bin is that large (the kernel reports which, see ``reads_log`` below);
   * ``threshold_find_plain``: the plain PyTorch twin, the reference's
     16-ary search (8 sweeps of 15 candidate boundaries ``lo + j*step``) on
     whole rows. The CPU tests hold it to the Pallas kernel; ``chip_smoke.py``
@@ -24,6 +25,9 @@ searches give the same bits:
 
 ``threshold_find`` picks by the tensor's device: the twin for CPU tensors,
 the kernel for CUDA tensors (it launches or raises — there is no fallback).
+While ``threshold_find.reads_log`` is a list, each kernel call appends to it
+a [C] int32 CUDA tensor of the reads of x each client took (2 or 3), as the
+kernel wrote them; it is None, and nothing is recorded, otherwise.
 Thresholds come back as int32: every threshold is below 2^31 because
 ``abs`` clears the sign bit.
 """
@@ -75,7 +79,7 @@ def threshold_find_plain(x: torch.Tensor, ks: torch.Tensor,
 def _threshold_find_lib():
     lib = build.library("threshold_find")
     fn = lib.threshold_find_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     scratch = lib.threshold_find_scratch_ints
@@ -119,14 +123,20 @@ def threshold_find_cuda(x: torch.Tensor, ks: torch.Tensor,
                           device=x.device)
     cand = torch.empty((cand_ints(c, n),), dtype=torch.int32,
                        device=x.device)
+    log = threshold_find.reads_log
+    reads = (torch.empty((c,), dtype=torch.int32, device=x.device)
+             if log is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), e.data_ptr() if e is not None else None,
                  ks.data_ptr(), th.data_ptr(),
                  absmax.data_ptr() if emit_scale else None,
+                 reads.data_ptr() if reads is not None else None,
                  scratch.data_ptr(), cand.data_ptr(), n, c, stream)
     build.check(err, "threshold_find")
     threshold_find.launches += 1
+    if log is not None:
+        log.append(reads)
     return (th, absmax) if emit_scale else th
 
 
@@ -146,3 +156,5 @@ def threshold_find(x: torch.Tensor, ks: torch.Tensor,
 
 #: kernel launches (one per call that reaches the Hopper kernel)
 threshold_find.launches = 0
+#: None, or a list that collects each kernel call's reads of x per client
+threshold_find.reads_log = None

@@ -2,9 +2,9 @@
 against its plain twin (``threshold_find`` also on adversarial rows, the
 block kernels also on rows wider than their register path), the present
 ``flash_attention`` kernel within its summation-order bound of its twin
-(plus one bf16 ULP in bf16), the bf16 wgmma kernel within ``wgmma_bound``
-of its twin, the device-based dispatch of the wrappers (bf16 to the wgmma
-kernel), and short ``run_fl`` runs (fused and legacy engines) and a short
+(plus one bf16 ULP in bf16), the bf16 wgmma kernel within the bound of
+``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
+wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused and legacy engines) and a short
 reduced-model serve through the kernels' paths.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
@@ -205,14 +205,13 @@ def test_flash_kernel_vs_twin(card, d, dtype, causal):
         assert torch.equal(got, up.to(torch.bfloat16))
 
 
-def _wgmma_close(got, want, q, k, v, p_roundings):
-    """Within wgmma_bound plus one bf16 ULP of the larger magnitude."""
+def _wgmma_close(got, want, bound):
+    """Within the bound of ``wgmma_twin_and_bound`` plus one bf16 ULP of
+    the larger magnitude."""
     diff = (got.double() - want.double()).abs()
     mag = torch.maximum(got.double().abs(), want.double().abs())
     _, e = torch.frexp(mag.float())
-    limit = fa.wgmma_bound(q, k, v, mag, p_roundings=p_roundings) + \
-        torch.pow(2.0, (e - 8).double())
-    return bool((diff <= limit).all())
+    return bool((diff <= bound + torch.pow(2.0, (e - 8).double())).all())
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -221,16 +220,18 @@ def test_flash_wgmma_vs_twin(card, d, causal):
     g = torch.Generator(device=card).manual_seed(d + causal)
     q, k, v = (torch.randn(3, s, d, device=card, generator=g).to(
         torch.bfloat16) for s in (256, 384, 384))
-    w0 = fa.flash_attention_wgmma.launches
-    got = fa.flash_attention_wgmma(q, k, v, causal=causal)
-    assert fa.flash_attention_wgmma.launches == w0 + 1
-    want = fa.flash_attention_wgmma_plain(q, k, v, causal=causal)
+    w0 = fa.flash_attention_wgmma_cuda.launches
+    got = fa.flash_attention_wgmma_cuda(q, k, v, causal=causal)
+    assert fa.flash_attention_wgmma_cuda.launches == w0 + 1
+    want, bound = fa.wgmma_twin_and_bound(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
-    assert _wgmma_close(got, want, q, k, v, 2)
+    assert _wgmma_close(got, want, bound)
     f32 = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                    causal=causal)
-    assert _wgmma_close(want, f32, q, k, v, 1)
+    twin, bound1 = fa.wgmma_twin_and_bound(q, k, v, causal=causal,
+                                           both_round=False)
+    assert _wgmma_close(twin, f32, bound1)
 
 
 def test_flash_wgmma_ragged_entry_point(card):
@@ -240,32 +241,33 @@ def test_flash_wgmma_ragged_entry_point(card):
     q = torch.randn(1, 700, 2, 64, device=card, generator=g).bfloat16()
     k, v = (torch.randn(1, 1000, 2, 64, device=card, generator=g).bfloat16()
             for _ in range(2))
-    w0 = fa.flash_attention_wgmma.launches
+    w0 = fa.flash_attention_wgmma_cuda.launches
     got = ops.flash_attention(q, k, v)
-    assert fa.flash_attention_wgmma.launches == w0 + 1
+    assert fa.flash_attention_wgmma_cuda.launches == w0 + 1
 
     def flat(x, s):
         t = x.transpose(1, 2).reshape(2, x.shape[1], 64)
         return torch.nn.functional.pad(t, (0, 0, 0, s - x.shape[1]))
 
     qb, kb, vb = flat(q, 768), flat(k, 1024), flat(v, 1024)
-    want = fa.flash_attention_wgmma_plain(qb, kb, vb)
+    want, bound = fa.wgmma_twin_and_bound(qb, kb, vb)
     torch.cuda.synchronize()
     assert got.shape == q.shape
     got = flat(got, 768)           # [BH, Sq, D], zero rows past 700
-    assert _wgmma_close(got[:, :700], want[:, :700], qb[:, :700], kb, vb, 2)
+    assert _wgmma_close(got[:, :700], want[:, :700], bound[:, :700])
 
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_bf16_reaches_the_wgmma_kernel(card, d):
     x = torch.randn(1, 256, 4, d, device=card).bfloat16()
-    f0, w0 = fa.flash_attention.launches, fa.flash_attention_wgmma.launches
+    f0 = fa.flash_attention.launches
+    w0 = fa.flash_attention_wgmma_cuda.launches
     ops.flash_attention(x, x, x)
     assert (fa.flash_attention.launches,
-            fa.flash_attention_wgmma.launches) == (f0, w0 + 1)
+            fa.flash_attention_wgmma_cuda.launches) == (f0, w0 + 1)
     ops.flash_attention(x.float(), x.float(), x.float())
     assert (fa.flash_attention.launches,
-            fa.flash_attention_wgmma.launches) == (f0 + 1, w0 + 1)
+            fa.flash_attention_wgmma_cuda.launches) == (f0 + 1, w0 + 1)
 
 
 def test_threshold_find_adversarial_rows(card):
@@ -299,6 +301,28 @@ def test_threshold_find_adversarial_rows(card):
         th, am = tf.threshold_find(x, ks, e, emit_scale=True)
         tp, ap = tf.threshold_find_plain(x, ks, e, emit_scale=True)
         assert torch.equal(th, tp) and _same_bits(am, ap)
+
+
+def test_threshold_find_reads_of_x(card):
+    """Both branches of the last pass, bit for bit: a client whose chosen
+    bin is small reads its compacted candidates (2 reads of x), one whose
+    bin holds more than n/8 (a row mostly zero, k in the zeros) reads x
+    again (3); the kernel reports which."""
+    g = torch.Generator(device=card).manual_seed(4)
+    c, n = 4, 1 << 20
+    x = torch.randn(c, n, device=card, generator=g)
+    x[1, : n * 9 // 10] = 0.0
+    x[2, : n * 9 // 10] = 0.0
+    ks = torch.tensor([n // 10, n // 2, n // 50, 1], device=card,
+                      dtype=torch.int32)
+    tf.threshold_find.reads_log = []
+    try:
+        th = tf.threshold_find(x, ks)
+        log = tf.threshold_find.reads_log
+    finally:
+        tf.threshold_find.reads_log = None
+    assert torch.equal(th, tf.threshold_find_plain(x, ks))
+    assert len(log) == 1 and log[0].tolist() == [2, 3, 2, 2]
 
 
 def test_block_kernels_wide_rows(card):
