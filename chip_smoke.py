@@ -15,8 +15,12 @@
    ``overlap_combine`` at the main shape, the leaf and a ragged shape
    (block 1000; C=3, n=1001), the row kernels also at block 32768 (their
    wide path), with edge rows (zeros, ties, huge, NaN, inf, a
-   1e-15-under-1.0 row, denormals); times kernel, twin and the nearest
-   single PyTorch call with CUDA events;
+   1e-15-under-1.0 row, denormals), and on ``block_topk.adversarial_rows``
+   (one hot first digit, last-digit neighbours at the k-th, patterns one
+   ULP apart, ties across the k-th, ...) at blocks 1000, 1001, 8192, 16384,
+   32768 and 65536 and on unaligned rows (every route of the two kernels);
+   times kernel, twin and the nearest single PyTorch call with CUDA
+   events, the row kernels also at [8, 32768] and [4, 262144];
 3. drives each path with the kernels' launch counters reset just before and
    read just after: the fused engine ``run_fl(engine="fused")`` at the
    simulation MLP's full width for 5 rounds under bcrs_opwa, eftopk, qtopk
@@ -46,7 +50,7 @@
    ``Model.prefill`` over the same prompt against the decode logits;
 6. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path and 3 decode steps of the serve path (device time by kernel, idle
-   share).
+   share), and the row kernels' device time a call at the main shape.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -83,8 +87,15 @@ CR = 0.1                      # AggregationConfig.cr default
 BLOCK_MAIN = (-(-MAIN[1] // BLOCK), BLOCK)
 BLOCK_LEAF = (LEAF[1] // BLOCK, BLOCK)
 BLOCK_RAGGED = (2, 1000)
-#: rows wider than the block kernels hold in registers (the wide path)
+#: rows wider than the block kernels hold in registers (the wide path), and
+#: a longer one
 BLOCK_WIDE = (8, 32768)
+BLOCK_LONG = (4, 262144)
+#: widths of the block kernels' adversarial rows: the register path with
+#: float4 access (1000, the default, the widest register row) and without
+#: (1001), the wide path staged in shared memory (32768) and re-read from
+#: device memory in each pass (65536)
+ADVERSARIAL_BLOCKS = (1000, 1001, BLOCK, 16384, BLOCK_WIDE[1], 65536)
 #: threshold_find's large tie-heavy adversarial rows
 BIG_TIES = (8, 1 << 21)
 
@@ -418,9 +429,9 @@ def combine_case(c: int, n: int, seed: int):
 
 def block_parity(mods, record):
     """block_topk and ef_update at the main, leaf, ragged and wide (block
-    32768) rows (k = 1, the default ratio's k, k = block), overlap_combine
-    at the main, leaf and ragged [C, n] (gamma 5 / d 1 and gamma 1 / d 2):
-    bitwise."""
+    32768) rows and on the adversarial rows at ``ADVERSARIAL_BLOCKS`` (k =
+    1, the default ratio's k, k = block), overlap_combine at the main, leaf
+    and ragged [C, n] (gamma 5 / d 1 and gamma 1 / d 2): bitwise."""
     from repro_torch.core.compression import k_for_ratio
     bt, eu, oc = mods["block_topk"], mods["ef_update"], mods["overlap_combine"]
     worst = {"block_topk": 0.0, "ef_update": 0.0, "overlap_combine": 0.0}
@@ -446,6 +457,41 @@ def block_parity(mods, record):
                 worst["ef_update"] = max(worst["ef_update"], max_abs(g_, w_))
             cases += 2
         del x, e
+    # rows that a radix select can slip on (block_topk.adversarial_rows:
+    # one hot first digit, last-digit neighbours at the k-th, patterns one
+    # ULP apart across 1.0, ties across the k-th, ...), register and wide
+    adversarial = 0
+    for block in ADVERSARIAL_BLOCKS:
+        for k in sorted({1, k_for_ratio(block, CR), block}):
+            x = torch.from_numpy(bt.adversarial_rows(block, k, block + k))
+            x = x.to("cuda")
+            g = torch.Generator(device="cuda").manual_seed(block + k)
+            e = 0.3 * torch.randn(x.shape, device="cuda", generator=g)
+            e[0] = -x[0]
+            e[8, :20] = 1e-40
+            got, want = bt.block_topk(x, k), bt.block_topk_plain(x, k)
+            torch.cuda.synchronize()
+            check(bits_equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"block_topk adversarial rows block={block} k={k}")
+            got, want = eu.ef_update(x, e, k), eu.ef_update_plain(x, e, k)
+            torch.cuda.synchronize()
+            for g_, w_ in zip(got, want):
+                check(bits_equal(g_, w_),
+                      f"ef_update adversarial rows block={block} k={k}")
+            adversarial += 2
+    # a row that starts 4 bytes past a 16-byte boundary: the scalar path
+    x = torch.randn(8 * BLOCK + 1, device="cuda")[1:].view(8, BLOCK)
+    k = k_for_ratio(BLOCK, CR)
+    got, want = bt.block_topk(x, k), bt.block_topk_plain(x, k)
+    check(bits_equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "block_topk unaligned rows")
+    got, want = eu.ef_update(x, x.flip(0), k), eu.ef_update_plain(
+        x, x.flip(0), k)
+    check(all(bits_equal(g_, w_) for g_, w_ in zip(got, want)),
+          "ef_update unaligned rows")
+    adversarial += 2
+    record["block_adversarial_cases"] = adversarial
+    cases += adversarial
     for seed, (c, n) in enumerate((MAIN, LEAF, RAGGED)):
         vals, masks, coeffs = combine_case(c, n, 300 + seed)
         for gamma, d in ((5.0, 1), (1.0, 2)):
@@ -477,39 +523,69 @@ def timing_row(kernel, shape, variant, nbytes, ops, ms, plain_ms, library,
                 plain_ms=plain_ms, library=library, library_ms=library_ms)
 
 
-def block_timings(mods, record):
-    """block_topk, ef_update and overlap_combine at the main path's shape
-    and at the leaf: kernel, twin and library call with CUDA events."""
+def row_kernel_rows(bt, eu, label, nb, block, reps):
+    """block_topk and ef_update on [nb, block] rows at the default ratio's
+    k: kernel, twin and torch.topk with CUDA events, and their bounds."""
     from repro_torch.core.compression import k_for_ratio
-    from repro_torch.kernels.block_topk import N_ITERS
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(nb, block, device="cuda", generator=g)
+    e = 0.3 * torch.randn(nb, block, device="cuda", generator=g)
+    mag = x.abs()
+    k = k_for_ratio(block, CR)
+    elems = nb * block
+    variant = f"[{nb}, {block}] k={k}"
+    topk = "torch.topk(|x|, k, dim=1)"
+    few = max(3, reps // 5)
+    # x read once, vals + int8 mask written once (9 B); 4 digit passes of a
+    # shift and a compare, and the mask's compare (9 operations)
+    rows = [timing_row(
+        "block_topk", label, variant, elems * 9, elems * 9,
+        time_ms(lambda: bt.block_topk(x, k), reps),
+        time_ms(lambda: bt.block_topk_plain(x, k), few), topk,
+        time_ms(lambda: torch.topk(mag, k, dim=1), reps))]
+    # g, e read once, send, residual' written once (16 B); the same 9
+    # operations, the add and the subtract
+    rows.append(timing_row(
+        "ef_update", label, variant, elems * 16, elems * 11,
+        time_ms(lambda: eu.ef_update(x, e, k), reps),
+        time_ms(lambda: eu.ef_update_plain(x, e, k), few), topk,
+        time_ms(lambda: torch.topk(mag, k, dim=1), reps)))
+    return rows
+
+
+def row_kernel_device_ms(bt, eu, nb, block, calls=20):
+    """Device time a call of block_topk's and ef_update's kernels on
+    [nb, block] rows under torch.profiler (the event-timed call at the main
+    shape is the host's); "not measured" when the profiler shows none."""
+    from repro_torch.core.compression import k_for_ratio
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(nb, block, device="cuda", generator=g)
+    e = 0.3 * torch.randn(nb, block, device="cuda", generator=g)
+    k = k_for_ratio(block, CR)
+    out = {}
+    for name, fn in (("block_topk", lambda: bt.block_topk(x, k)),
+                     ("ef_update", lambda: eu.ef_update(x, e, k))):
+        fn()
+        torch.cuda.synchronize()
+        _, _, by_name = device_profile(
+            lambda: [fn() for _ in range(calls)])
+        ms = [t for key, (t, _) in by_name.items() if name + "_" in key]
+        out[name] = sum(ms) / calls if ms else "not measured"
+    return out
+
+
+def block_timings(mods, record, profile=False):
+    """block_topk, ef_update and overlap_combine at the main path's shape
+    and at the leaf, the row kernels also at their wide path ([8, 32768])
+    and a longer row ([4, 262144]): kernel, twin and library call with CUDA
+    events; with ``profile``, the row kernels' device time a call at the
+    main shape."""
     bt, eu, oc = mods["block_topk"], mods["ef_update"], mods["overlap_combine"]
     rows = []
     for label, (nb, block), (c, n), reps in (
             ("main", BLOCK_MAIN, MAIN, 50), ("leaf", BLOCK_LEAF, LEAF, 10)):
-        g = torch.Generator(device="cuda").manual_seed(8)
-        x = torch.randn(nb, block, device="cuda", generator=g)
-        e = 0.3 * torch.randn(nb, block, device="cuda", generator=g)
-        mag = x.abs()
-        k = k_for_ratio(block, CR)
-        elems = nb * block
-        variant = f"[{nb}, {block}] k={k}"
-        topk = "torch.topk(|x|, k, dim=1)"
+        rows += row_kernel_rows(bt, eu, label, nb, block, reps)
         few = max(3, reps // 5)
-        # x read once, vals + int8 mask written once; the row max and 40
-        # counting steps compare each element 41 times
-        rows.append(timing_row(
-            "block_topk", label, variant, elems * 9, elems * (N_ITERS + 1),
-            time_ms(lambda: bt.block_topk(x, k), reps),
-            time_ms(lambda: bt.block_topk_plain(x, k), few), topk,
-            time_ms(lambda: torch.topk(mag, k, dim=1), reps)))
-        # g, e read once, send, residual' written once; add, 41 compares,
-        # subtract
-        rows.append(timing_row(
-            "ef_update", label, variant, elems * 16, elems * (N_ITERS + 3),
-            time_ms(lambda: eu.ef_update(x, e, k), reps),
-            time_ms(lambda: eu.ef_update_plain(x, e, k), few), topk,
-            time_ms(lambda: torch.topk(mag, k, dim=1), reps)))
-        del x, e, mag
         vals, masks, coeffs = combine_case(c, n, 9)
         # vals (4 B) + mask (1 B) read per client-element, out (4 B) written
         # per column, coeffs once; multiply, add and count per
@@ -524,7 +600,15 @@ def block_timings(mods, record):
             "none exists", None))
         del vals, masks
         torch.cuda.empty_cache()
+    for label, (nb, block) in (("wide", BLOCK_WIDE), ("long", BLOCK_LONG)):
+        rows += row_kernel_rows(bt, eu, label, nb, block, 20)
+    torch.cuda.empty_cache()
     record["block_timings"] = rows
+    if profile:
+        record["block_device_ms_per_call"] = row_kernel_device_ms(
+            bt, eu, *BLOCK_MAIN)
+        print("[profile block kernels, main shape, device ms a call]",
+              json.dumps(record["block_device_ms_per_call"]))
     return rows
 
 
@@ -1308,7 +1392,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3 rounds of the fused and the legacy "
-                         "path and 3 decode steps of the serve path")
+                         "path, 3 decode steps of the serve path and the row "
+                         "kernels at the main shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1349,7 +1434,8 @@ def main() -> int:
     print(f"[parity] {record['parity_cases']} + "
           f"{record['block_parity_cases']} cases bitwise equal "
           f"({time.perf_counter() - t0:.1f} s)")
-    rows = kernel_timings(tf, fm, record) + block_timings(modules, record)
+    rows = kernel_timings(tf, fm, record) + block_timings(
+        modules, record, args.profile)
     for row in rows:
         print("[timing]", json.dumps(row))
 
@@ -1394,6 +1480,17 @@ def main() -> int:
             "threshold_find_launches_per_call"],
             reads_of_x=record["main_path_reads_of_x"])
                  if name == "threshold_find" else {})
+        if name in ("block_topk", "ef_update"):
+            # the wide path ([8, 32768]) and a longer row ([4, 262144])
+            for r in rows:
+                if r["kernel"] == name and r["shape"] in ("wide", "long"):
+                    extra.update({f"{r['shape']}_ms": r["ms"],
+                                  f"{r['shape']}_bound_ms": r["bound_ms"],
+                                  f"{r['shape']}_library_ms":
+                                      r["library_ms"]})
+            if "block_device_ms_per_call" in record:
+                extra["device_ms_per_call"] = record[
+                    "block_device_ms_per_call"][name]
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches[name],

@@ -1,7 +1,7 @@
 // ef_update: the fused error-feedback step on g, e [nb, block]:
 //
 //   corrected = e + g
-//   mask      = block Top-K of |corrected| (the bisection of block_select.cuh)
+//   mask      = block Top-K of |corrected| (the selection of block_select.cuh)
 //   send      = mask ? corrected : 0
 //   residual' = corrected - send
 //
@@ -9,13 +9,18 @@
 // (ef_update_pallas / _ef_update_kernel). The add reads denormal operands as
 // zero and writes a denormal sum as zero, as the reference's platforms do
 // (block_select.cuh); every add and subtract is an explicit round-to-nearest
-// intrinsic. One CTA owns one row, any block, any nb: a row of up to 16384
-// is held in registers, a longer one goes to ef_update_wide_kernel, which
-// recomputes corrected from g and e at every step (select_lo_wide: the same
-// bisection, the same lo).
+// intrinsic. The selection is an exact radix select of the k-th magnitude
+// (4 digit passes, 10 barriers) followed by the reference's 40 bisection
+// steps as a scalar recurrence: the reference's lo, bit for bit. One CTA
+// owns one row, any block, any nb: a row of up to 16384 is held in
+// registers and read once, a longer one goes to ef_update_wide_kernel
+// (select_kth_wide, the same lo), which computes corrected once into shared
+// memory for a row of up to STAGE_MAX (49152), so g and e are read once, and
+// recomputes it from g and e in each of the 4 passes and for the outputs
+// for a longer row (5 reads).
 //
 // Bound on the card: bytes. g and e are read once (8 B an element), send and
-// residual' written once (8 B): 16 B an element; the 40 counts run on the
+// residual' written once (8 B): 16 B an element; the digit passes run on the
 // row held in registers.
 //
 // Plain C interface (ctypes): pointers and the stream as void*, returns the
@@ -29,6 +34,12 @@ namespace {
 
 using namespace block_select;
 
+// corrected = e + g, each operand and the sum flushed
+__device__ __forceinline__ float correct(float e, float g) {
+  return flush(__fadd_rn(flush(e), flush(g)));
+}
+
+template <bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
 ef_update_kernel(const float* __restrict__ g, const float* __restrict__ e,
                  float* __restrict__ send, float* __restrict__ res, int block,
@@ -36,43 +47,82 @@ ef_update_kernel(const float* __restrict__ g, const float* __restrict__ e,
   __shared__ Scratch s;
   const size_t base = (size_t)blockIdx.x * block;
   float v[ITEMS];
+  if constexpr (VEC) {
+    const float4* g4 = reinterpret_cast<const float4*>(g + base);
+    const float4* e4 = reinterpret_cast<const float4*>(e + base);
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int idx = threadIdx.x + i * blockDim.x;
-    v[i] = idx < block
-               ? flush(__fadd_rn(flush(e[base + idx]), flush(g[base + idx])))
-               : 0.0f;
+    for (int j = 0; j < ITEMS / 4; ++j) {
+      const int idx = item_index<true>(4 * j);
+      const float4 z = make_float4(0, 0, 0, 0);
+      const float4 a = idx < block ? e4[idx >> 2] : z;
+      const float4 b = idx < block ? g4[idx >> 2] : z;
+      v[4 * j] = correct(a.x, b.x), v[4 * j + 1] = correct(a.y, b.y);
+      v[4 * j + 2] = correct(a.z, b.z), v[4 * j + 3] = correct(a.w, b.w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int idx = item_index<false>(i);
+      v[i] = idx < block ? correct(e[base + idx], g[base + idx]) : 0.0f;
+    }
   }
-  const float lo = select_lo(v, block, k, s);
+  const float lo = select_kth<VEC>(v, block, k, s);
+  float out[ITEMS];
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const int idx = threadIdx.x + i * blockDim.x;
-    if (idx < block) {
-      const float out = fabsf(v[i]) >= lo ? v[i] : 0.0f;
-      send[base + idx] = out;
-      res[base + idx] = __fsub_rn(v[i], out);
+  for (int i = 0; i < ITEMS; ++i) out[i] = fabsf(v[i]) >= lo ? v[i] : 0.0f;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int j = 0; j < ITEMS / 4; ++j) {
+      const int idx = item_index<true>(4 * j);
+      if (idx < block) {
+        const float* o = out + 4 * j;
+        const float* w = v + 4 * j;
+        reinterpret_cast<float4*>(send + base)[idx >> 2] =
+            make_float4(o[0], o[1], o[2], o[3]);
+        reinterpret_cast<float4*>(res + base)[idx >> 2] = make_float4(
+            __fsub_rn(w[0], o[0]), __fsub_rn(w[1], o[1]),
+            __fsub_rn(w[2], o[2]), __fsub_rn(w[3], o[3]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int idx = item_index<false>(i);
+      if (idx < block) {
+        send[base + idx] = out[i];
+        res[base + idx] = __fsub_rn(v[i], out[i]);
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// STAGED: corrected (a row of at most STAGE_MAX) is computed once into
+// shared memory and the passes and the outputs read it there; else every
+// pass recomputes it from g and e.
+template <bool STAGED>
+__global__ void __launch_bounds__(WIDE_THREADS)
 ef_update_wide_kernel(const float* __restrict__ g, const float* __restrict__ e,
                       float* __restrict__ send, float* __restrict__ res,
                       int block, int k) {
   __shared__ Scratch s;
+  extern __shared__ float stage[];
   const size_t base = (size_t)blockIdx.x * block;
   const float* gr = g + base;
   const float* er = e + base;
-  auto corrected = [gr, er](int i) {
-    return flush(__fadd_rn(flush(er[i]), flush(gr[i])));
+  auto corrected = [gr, er](int i) { return correct(er[i], gr[i]); };
+  // each thread reads back only the slots it wrote: no barrier needed
+  if constexpr (STAGED)
+    for_each_wide(corrected, block, [&](int i, float v) { stage[i] = v; });
+  auto value = [&](int i) {
+    if constexpr (STAGED) return stage[i];
+    else return corrected(i);
   };
-  const float lo = select_lo_wide(corrected, block, k, s);
-  for (int idx = threadIdx.x; idx < block; idx += blockDim.x) {
-    const float v = corrected(idx);
+  const float lo = select_kth_wide(value, block, k, s);
+  for_each_wide(value, block, [&](int idx, float v) {
     const float out = fabsf(v) >= lo ? v : 0.0f;
     send[base + idx] = out;
     res[base + idx] = __fsub_rn(v, out);
-  }
+  });
 }
 
 }  // namespace
@@ -84,16 +134,33 @@ extern "C" int ef_update_launch(const void* g, const void* e, void* send,
                                 void* stream) {
   if (block < 1 || k < 1 || k > block || nb < 1 || nb > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (block > MAX_BLOCK) {
-    ef_update_wide_kernel<<<(unsigned)nb, MAX_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(g), static_cast<const float*>(e),
-        static_cast<float*>(send), static_cast<float*>(res), block, k);
-    return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* ep = static_cast<const float*>(e);
+  auto* sp = static_cast<float*>(send);
+  auto* rp = static_cast<float*>(res);
+  if (block <= MAX_BLOCK) {
+    const bool vec = block % 4 == 0 && ((uintptr_t)g | (uintptr_t)e |
+                                        (uintptr_t)send | (uintptr_t)res) %
+                                               16 == 0;
+    if (vec)
+      ef_update_kernel<true><<<(unsigned)nb, threads_for(block), 0, st>>>(
+          gp, ep, sp, rp, block, k);
+    else
+      ef_update_kernel<false><<<(unsigned)nb, threads_for(block), 0, st>>>(
+          gp, ep, sp, rp, block, k);
+  } else if (block <= STAGE_MAX) {
+    const int bytes = STAGE_MAX * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        ef_update_wide_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    ef_update_wide_kernel<true><<<(unsigned)nb, WIDE_THREADS,
+                                  block * sizeof(float), st>>>(
+        gp, ep, sp, rp, block, k);
+  } else {
+    ef_update_wide_kernel<false><<<(unsigned)nb, WIDE_THREADS, 0, st>>>(
+        gp, ep, sp, rp, block, k);
   }
-  ef_update_kernel<<<(unsigned)nb, threads_for(block), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(e),
-      static_cast<float*>(send), static_cast<float*>(res), block, k);
   return (int)cudaGetLastError();
 }

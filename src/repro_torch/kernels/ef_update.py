@@ -12,13 +12,16 @@ as the reference's platforms do, so the results match it bit for bit on
 every input (``block_topk`` says the same of the selection).
 
 ``ef_update_cuda`` is the hand-written Hopper kernel (``csrc/ef_update.cu``,
-sharing ``csrc/block_select.cuh`` with ``block_topk``); ``ef_update_plain``
-is its plain PyTorch twin. ``ef_update`` picks by the tensor's device: the
-twin for CPU tensors, the kernel for CUDA tensors.
+sharing ``csrc/block_select.cuh`` with ``block_topk``: an exact radix select
+of the k-th magnitude, then the 40 bisection steps as a scalar recurrence,
+bit for bit the reference's ``lo``); ``ef_update_plain`` is its plain
+PyTorch twin, the reference's 40 counting steps. ``ef_update`` picks by the
+tensor's device: the twin for CPU tensors, the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +40,7 @@ def ef_update_plain(g2d: torch.Tensor, e2d: torch.Tensor, k: int):
     return send, corrected - send
 
 
+@functools.cache
 def _ef_update_lib():
     fn = build.library("ef_update").ef_update_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,

@@ -1,6 +1,7 @@
 """The port's Hopper kernels on the card: each FL kernel bit for bit
-against its plain twin (``threshold_find`` also on adversarial rows, the
-block kernels also on rows wider than their register path), the present
+against its plain twin (``threshold_find`` and the block kernels also on
+adversarial rows, the block kernels also on rows wider than their register
+path), the present
 ``flash_attention`` kernel within its summation-order bound of its twin
 (plus one bf16 ULP in bf16), the bf16 wgmma kernel within the bound of
 ``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
@@ -344,6 +345,39 @@ def test_block_kernels_wide_rows(card):
     want = ops.block_topk(u.cpu(), 0.1, block=32768)
     assert torch.equal(got.mask.cpu(), want.mask)
     assert _same_bits(got.values.cpu(), want.values)
+
+
+@pytest.mark.parametrize("block", [1000, 1001, 8192, 16384, 32768, 65536])
+def test_block_kernels_adversarial_rows(card, block):
+    """block_topk.adversarial_rows (one hot first digit, last-digit
+    neighbours at the k-th, patterns one ULP apart, ties across the k-th,
+    NaN, inf, denormals) on every route: registers with float4 access
+    (1000, 8192, 16384) and without (1001), the wide path staged in shared
+    memory (32768) and re-read from device memory (65536): bit for bit
+    against the twins."""
+    for k in (1, max(1, block // 10), block):
+        x = torch.from_numpy(bt.adversarial_rows(block, k, block + k))
+        x = x.to(card)
+        e = 0.3 * _rows(16, block, card, seed=k).nan_to_num(0.0, 0.0, 0.0)
+        v, m = bt.block_topk(x, k)
+        pv, pm = bt.block_topk_plain(x, k)
+        assert _same_bits(v, pv) and torch.equal(m, pm), k
+        s, r = eu.ef_update(x, e, k)
+        ps, pr = eu.ef_update_plain(x, e, k)
+        assert _same_bits(s, ps) and _same_bits(r, pr), k
+
+
+def test_block_kernels_unaligned_rows(card):
+    """Rows 4 bytes past a 16-byte boundary take the scalar register
+    path: bit for bit against the twins."""
+    x = _rows(8, 8193, card).reshape(-1)[1:65537].view(8, 8192)
+    e = x.flip(0).nan_to_num(0.0, 0.0, 0.0)
+    v, m = bt.block_topk(x, 819)
+    pv, pm = bt.block_topk_plain(x, 819)
+    assert _same_bits(v, pv) and torch.equal(m, pm)
+    s, r = eu.ef_update(x, e, 819)
+    ps, pr = eu.ef_update_plain(x, e, 819)
+    assert _same_bits(s, ps) and _same_bits(r, pr)
 
 
 def test_flash_entry_point_ragged_and_gqa(card):
