@@ -15,7 +15,7 @@
    ``overlap_combine`` at the main shape, the leaf and a ragged shape
    (block 1000; C=3, n=1001), the row kernels also at block 32768 (their
    wide path), with edge rows (zeros, ties, huge, NaN, inf, a
-   1e-15-under-1.0 row, denormals), and on ``block_topk.adversarial_rows``
+   1e-15-under-1.0 row, denormals), and on ``adversarial_rows``
    (one hot first digit, last-digit neighbours at the k-th, patterns one
    ULP apart, ties across the k-th, ...) at blocks 1000, 1001, 8192, 16384,
    32768 and 65536 and on unaligned rows (every route of the two kernels);
@@ -93,8 +93,8 @@ BLOCK_WIDE = (8, 32768)
 BLOCK_LONG = (4, 262144)
 #: widths of the block kernels' adversarial rows: the register path with
 #: float4 access (1000, the default, the widest register row) and without
-#: (1001), the wide path staged in shared memory (32768) and re-read from
-#: device memory in each pass (65536)
+#: (1001), and the wide path, which re-reads the row in each pass (32768,
+#: 65536)
 ADVERSARIAL_BLOCKS = (1000, 1001, BLOCK, 16384, BLOCK_WIDE[1], 65536)
 #: threshold_find's large tie-heavy adversarial rows
 BIG_TIES = (8, 1 << 21)
@@ -417,6 +417,50 @@ def block_rows(nb: int, block: int, seed: int) -> torch.Tensor:
     return x
 
 
+def adversarial_rows(block: int, k: int, seed: int) -> np.ndarray:
+    """16 f32 rows of ``block`` (seeded numpy; also the CPU tests' rows) on
+    which a value bisection differs from exact Top-K or a radix select can
+    slip: zeros, ties, huge values, NaN, +-inf, the k-th magnitude below
+    rowmax*2^-40, all denormal, mids falling to denormals, denormal halves,
+    signed zeros, a run of ties across the k-th, patterns one ULP apart
+    across 1.0 (every digit decides), neighbours that differ only in the
+    last digit, one hot first digit (all in [1, 2)), delta-like magnitudes
+    (a few exponents) and last-digit neighbours around the k-th among small
+    values."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(16, block)).astype(np.float32)
+    sign = np.where(rng.random((16, block)) < 0.5, -1, 1).astype(np.float32)
+    ar = np.arange(block)
+    x[0] = 0.0                                    # all zeros
+    x[1, : block // 2] = x[1, 0]                  # ties
+    x[2] *= np.float32(1e30)                      # huge
+    x[3, 5 % block] = np.nan                      # NaN: rowmax NaN
+    x[4, 7 % block], x[4, 3 % block] = np.inf, -np.inf
+    x[5] = 0.0                                    # k-th below rowmax*2^-40
+    x[5, 0], x[5, 1:21] = 1.0, 1e-15
+    x[6] *= np.float32(1e-40)                     # all denormal
+    x[7] = 0.0                                    # mids fall to denormals
+    x[7, :20] = 2e-38
+    x[8, : block // 2] *= np.float32(1e-40)       # denormal half
+    x[8, ::7] = -0.0
+    x[9, rng.random(block) < 0.5] = -0.0          # signed zeros
+    x[9, rng.random(block) < 0.25] = 0.0
+    order = np.argsort(-np.abs(x[10]), kind="stable")
+    run = order[max(0, k - 4): k + 3]             # ties across the k-th
+    x[10, run] = np.copysign(np.abs(x[10, order[k - 1]]), x[10, run])
+    ulps = np.uint32(0x3F800000 - block // 2) + rng.permutation(block)
+    x[11] = ulps.astype(np.uint32).view(np.float32) * sign[11]
+    last = np.uint32(0x3F800000) + rng.integers(0, 128, block)
+    x[12] = last.astype(np.uint32).view(np.float32) * sign[12]
+    x[13] = (1.0 + rng.random(block)).astype(np.float32) * sign[13]
+    x[14] *= np.float32(1e-3)
+    x[15] *= np.float32(1e-4)
+    near = rng.permutation(block)[: min(block, 2 * k)]
+    x[15, near] = (np.uint32(0x3C000000) + (ar[: near.size] % 128)).astype(
+        np.uint32).view(np.float32) * sign[15, near]
+    return x
+
+
 def combine_case(c: int, n: int, seed: int):
     """Dense-masked values [C, n], int8 masks of mixed density, coeffs."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -457,13 +501,13 @@ def block_parity(mods, record):
                 worst["ef_update"] = max(worst["ef_update"], max_abs(g_, w_))
             cases += 2
         del x, e
-    # rows that a radix select can slip on (block_topk.adversarial_rows:
-    # one hot first digit, last-digit neighbours at the k-th, patterns one
-    # ULP apart across 1.0, ties across the k-th, ...), register and wide
+    # rows that a radix select can slip on (adversarial_rows: one hot first
+    # digit, last-digit neighbours at the k-th, patterns one ULP apart
+    # across 1.0, ties across the k-th, ...), register and wide
     adversarial = 0
     for block in ADVERSARIAL_BLOCKS:
         for k in sorted({1, k_for_ratio(block, CR), block}):
-            x = torch.from_numpy(bt.adversarial_rows(block, k, block + k))
+            x = torch.from_numpy(adversarial_rows(block, k, block + k))
             x = x.to("cuda")
             g = torch.Generator(device="cuda").manual_seed(block + k)
             e = 0.3 * torch.randn(x.shape, device="cuda", generator=g)

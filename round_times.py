@@ -1,7 +1,8 @@
 """Wall time per round of the port's fused FL path on one CUDA card, and
-where the card's time per round goes, by kernel, under ``torch.profiler``.
+where the card's time per round goes, by kernel, under ``torch.profiler``;
+with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
-    python3 round_times.py [--src DIR] [--out PATH]
+    python3 round_times.py [--rows] [--src DIR] [--out PATH]
 
 For each of ``STRATEGIES``: ``run_fl(engine="fused")`` at the simulation
 MLP's full width (``FLSimConfig()`` defaults, cohort 5) for ``ROUNDS``
@@ -11,11 +12,19 @@ launches; host clock, no synchronisation) per call; then
 ``PROFILE_ROUNDS`` more rounds under the profiler, device time summed by
 kernel name a round, with the kernels of ``threshold_find`` (the radix
 passes, or the older sweep and finalize kernels) and the memsets totalled
-apart. ``--src`` names the ``src``
-directory of the tree to time (default: this checkout's), so one card can
-time two trees in alternation: parent, change, change, parent, each its own
-process. Prints one JSON line; ``--out`` also writes it to a file. Needs
-CUDA.
+apart.
+
+``--rows``: at each of ``ROW_SHAPES`` (the main path's rows [17, 8192],
+the stablelm-1.6b MLP leaf [1408, 8192], the wide path [8, 32768] and a
+longer row [4, 262144]), at the default ratio's k, both row kernels held
+bit for bit against their twins, then timed with CUDA events beside the
+twin and ``torch.topk`` (``chip_smoke.row_kernel_rows``), and their device
+time a call under the profiler (``chip_smoke.row_kernel_device_ms``).
+
+``--src`` names the ``src`` directory of the tree to time (default: this
+checkout's), so one card can time two trees in alternation: parent,
+change, change, parent, each its own process. Prints one JSON line;
+``--out`` also writes it to a file. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -35,6 +44,10 @@ THRESHOLD_KERNELS = re.compile(r"radix_pass|count_kernel|finalize_kernel")
 #: the fused path's strategies: global Top-K, with EF, with the int8 codec
 STRATEGIES = ("bcrs_opwa", "eftopk", "qtopk")
 ROUNDS, PROFILE_ROUNDS = 30, 5
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: [nb, block] rows of ``--rows``
+ROW_SHAPES = (("main", (17, 8192)), ("leaf", (1408, 8192)),
+              ("wide", (8, 32768)), ("long", (4, 262144)))
 
 
 def profile_rounds(run_fl, sim, acfg):
@@ -67,16 +80,8 @@ def profile_rounds(run_fl, sim, acfg):
         top_kernels_ms_per_round={k[:80]: v for k, v in top})
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
-    ap.add_argument("--out")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("round_times: needs a CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.abspath(args.src))
+def round_times(src: str) -> dict:
+    """The fused path's rounds under each of ``STRATEGIES``."""
     from repro_torch.core.aggregation import AggregationConfig
     from repro_torch.fed.simulation import FLSimConfig, run_fl
     from repro_torch.kernels import build
@@ -91,8 +96,8 @@ def main() -> int:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         return out
     tf.threshold_find_cuda = timed
-    out = dict(src=os.path.abspath(args.src), rounds=ROUNDS,
-               gpu=torch.cuda.get_device_name(0), strategies={})
+    out = dict(src=src, rounds=ROUNDS, gpu=torch.cuda.get_device_name(0),
+               strategies={})
     for s in STRATEGIES:
         acfg = AggregationConfig(strategy=s)
         host_ms.clear()
@@ -116,6 +121,58 @@ def main() -> int:
               f"{prof['threshold_find_device_ms_per_round']} ms a round, "
               f"host {statistics.median(calls):.4f} ms a call",
               file=sys.stderr)
+    return out
+
+
+def row_times(src: str) -> dict:
+    """``block_topk`` and ``ef_update`` at each of ``ROW_SHAPES``."""
+    sys.path.insert(1, HERE)
+    import chip_smoke as cs
+    from repro_torch.core.compression import k_for_ratio
+    from repro_torch.kernels import block_topk as bt
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ef_update as eu
+    build.build(["block_topk", "ef_update"])
+    out = dict(src=src, gpu=torch.cuda.get_device_name(0), shapes={})
+    for label, (nb, block) in ROW_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(nb)
+        x = torch.randn(nb, block, device="cuda", generator=g)
+        e = 0.3 * torch.randn(nb, block, device="cuda", generator=g)
+        k = k_for_ratio(block, cs.CR)
+        same = (cs.bits_equal(bt.block_topk(x, k)[0],
+                              bt.block_topk_plain(x, k)[0])
+                and all(cs.bits_equal(a, b) for a, b in zip(
+                    eu.ef_update(x, e, k), eu.ef_update_plain(x, e, k))))
+        cs.check(same, f"block kernels vs twins at [{nb}, {block}]")
+        del x, e
+        rows = cs.row_kernel_rows(bt, eu, label, nb, block,
+                                  10 if label == "leaf" else 30)
+        dev = cs.row_kernel_device_ms(bt, eu, nb, block)
+        out["shapes"][label] = {
+            r["kernel"]: dict(ms=r["ms"], device_ms_per_call=dev[r["kernel"]],
+                              bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                              library_ms=r["library_ms"], variant=r["variant"])
+            for r in rows}
+        print(f"[rows] {label}: " + ", ".join(
+            f"{r['kernel']} {r['ms']:.4f} ms (device "
+            f"{dev[r['kernel']]}, torch.topk {r['library_ms']:.4f})"
+            for r in rows), file=sys.stderr)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", action="store_true",
+                    help="time block_topk and ef_update, not the rounds")
+    ap.add_argument("--src", default=os.path.join(HERE, "src"))
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("round_times: needs a CUDA card", file=sys.stderr)
+        return 1
+    src = os.path.abspath(args.src)
+    sys.path.insert(0, src)
+    out = row_times(src) if args.rows else round_times(src)
     line = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

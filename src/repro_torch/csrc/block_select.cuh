@@ -62,10 +62,9 @@
 // rows an SM, spilled at 64 registers and measured slower.)
 // Rows longer than MAX_BLOCK take the wide path (select_kth_wide,
 // WIDE_THREADS threads, element idx by thread idx % WIDE_THREADS, BATCH
-// reads in flight a thread): a row of up to STAGE_MAX elements is read once
-// into shared memory (192 KB at most) and the passes and the outputs read
-// it there; a longer row is re-read from device memory in each pass, so the
-// wide kernels read it 5 times (4 passes and the outputs), from 42.
+// reads in flight a thread), which re-reads the row from device memory in
+// each pass, so the wide kernels read it 5 times (4 passes and the
+// outputs), from 42.
 // Histograms count integers and the max is order-free, so every path gives
 // the same m_k and hi on any row.
 #pragma once
@@ -80,8 +79,6 @@ constexpr int MAX_THREADS = 1024;                 // the register path
 constexpr int MAX_BLOCK = ITEMS * MAX_THREADS;    // 16384 elements a row
 constexpr int WIDE_THREADS = 1024;                // the wide path
 constexpr int MAX_WARPS = WIDE_THREADS / 32;
-// longest row the wide path stages in shared memory (192 KB of floats)
-constexpr int STAGE_MAX = 49152;
 constexpr int BATCH = 8;                          // wide loads in flight
 constexpr int N_ITERS = 40;
 constexpr int BINS = 256;                         // the widest digit: 8 bits

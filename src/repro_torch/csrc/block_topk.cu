@@ -10,10 +10,8 @@
 // lanes and needs block % 128 == 0 and nb % 8 == 0; here one CTA owns one
 // row, any block and any nb. A row of up to block_select::MAX_BLOCK (16384)
 // is held in registers and read once; a longer one goes to
-// block_topk_wide_kernel (select_kth_wide, the same lo), which stages a row
-// of up to STAGE_MAX (49152) in shared memory and so reads it once, and
-// re-reads a longer one in each of the 4 passes and for the outputs
-// (5 reads).
+// block_topk_wide_kernel (select_kth_wide, the same lo), which re-reads it
+// from device memory in each of the 4 passes and for the outputs (5 reads).
 //
 // Bound on the card: bytes. x is read once (4 B an element) and vals + mask
 // written once (5 B): 9 B an element. The digit passes run on the row held
@@ -89,24 +87,13 @@ block_topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
   }
 }
 
-// STAGED: the row (at most STAGE_MAX) is read once into shared memory and
-// the passes and the outputs read it there; else every pass re-reads it.
-template <bool STAGED>
 __global__ void __launch_bounds__(WIDE_THREADS)
 block_topk_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
                        int8_t* __restrict__ mask, int block, int k) {
   __shared__ Scratch s;
-  extern __shared__ float stage[];
   const size_t base = (size_t)blockIdx.x * block;
   const float* row = x + base;
-  auto global = [row](int i) { return row[i]; };
-  // each thread reads back only the slots it wrote: no barrier needed
-  if constexpr (STAGED)
-    for_each_wide(global, block, [&](int i, float v) { stage[i] = v; });
-  auto value = [&](int i) {
-    if constexpr (STAGED) return stage[i];
-    else return row[i];
-  };
+  auto value = [row](int i) { return row[i]; };
   const float lo = select_kth_wide(value, block, k, s);
   for_each_wide(value, block, [&](int idx, float v) {
     const bool m = flush(fabsf(v)) >= lo;
@@ -138,17 +125,8 @@ extern "C" int block_topk_launch(const void* x, void* vals, void* mask,
     else
       block_topk_kernel<false><<<(unsigned)nb, threads_for(block), 0, st>>>(
           xp, vp, mp, block, k);
-  } else if (block <= STAGE_MAX) {
-    const int bytes = STAGE_MAX * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        block_topk_wide_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    block_topk_wide_kernel<true><<<(unsigned)nb, WIDE_THREADS,
-                                   block * sizeof(float), st>>>(
-        xp, vp, mp, block, k);
   } else {
-    block_topk_wide_kernel<false><<<(unsigned)nb, WIDE_THREADS, 0, st>>>(
+    block_topk_wide_kernel<<<(unsigned)nb, WIDE_THREADS, 0, st>>>(
         xp, vp, mp, block, k);
   }
   return (int)cudaGetLastError();

@@ -14,10 +14,8 @@
 // steps as a scalar recurrence: the reference's lo, bit for bit. One CTA
 // owns one row, any block, any nb: a row of up to 16384 is held in
 // registers and read once, a longer one goes to ef_update_wide_kernel
-// (select_kth_wide, the same lo), which computes corrected once into shared
-// memory for a row of up to STAGE_MAX (49152), so g and e are read once, and
-// recomputes it from g and e in each of the 4 passes and for the outputs
-// for a longer row (5 reads).
+// (select_kth_wide, the same lo), which re-reads g and e and recomputes
+// corrected in each of the 4 passes and for the outputs (5 reads).
 //
 // Bound on the card: bytes. g and e are read once (8 B an element), send and
 // residual' written once (8 B): 16 B an element; the digit passes run on the
@@ -96,29 +94,17 @@ ef_update_kernel(const float* __restrict__ g, const float* __restrict__ e,
   }
 }
 
-// STAGED: corrected (a row of at most STAGE_MAX) is computed once into
-// shared memory and the passes and the outputs read it there; else every
-// pass recomputes it from g and e.
-template <bool STAGED>
 __global__ void __launch_bounds__(WIDE_THREADS)
 ef_update_wide_kernel(const float* __restrict__ g, const float* __restrict__ e,
                       float* __restrict__ send, float* __restrict__ res,
                       int block, int k) {
   __shared__ Scratch s;
-  extern __shared__ float stage[];
   const size_t base = (size_t)blockIdx.x * block;
   const float* gr = g + base;
   const float* er = e + base;
   auto corrected = [gr, er](int i) { return correct(er[i], gr[i]); };
-  // each thread reads back only the slots it wrote: no barrier needed
-  if constexpr (STAGED)
-    for_each_wide(corrected, block, [&](int i, float v) { stage[i] = v; });
-  auto value = [&](int i) {
-    if constexpr (STAGED) return stage[i];
-    else return corrected(i);
-  };
-  const float lo = select_kth_wide(value, block, k, s);
-  for_each_wide(value, block, [&](int idx, float v) {
+  const float lo = select_kth_wide(corrected, block, k, s);
+  for_each_wide(corrected, block, [&](int idx, float v) {
     const float out = fabsf(v) >= lo ? v : 0.0f;
     send[base + idx] = out;
     res[base + idx] = __fsub_rn(v, out);
@@ -149,17 +135,8 @@ extern "C" int ef_update_launch(const void* g, const void* e, void* send,
     else
       ef_update_kernel<false><<<(unsigned)nb, threads_for(block), 0, st>>>(
           gp, ep, sp, rp, block, k);
-  } else if (block <= STAGE_MAX) {
-    const int bytes = STAGE_MAX * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        ef_update_wide_kernel<true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    ef_update_wide_kernel<true><<<(unsigned)nb, WIDE_THREADS,
-                                  block * sizeof(float), st>>>(
-        gp, ep, sp, rp, block, k);
   } else {
-    ef_update_wide_kernel<false><<<(unsigned)nb, WIDE_THREADS, 0, st>>>(
+    ef_update_wide_kernel<<<(unsigned)nb, WIDE_THREADS, 0, st>>>(
         gp, ep, sp, rp, block, k);
   }
   return (int)cudaGetLastError();

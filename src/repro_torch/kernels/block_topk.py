@@ -21,16 +21,15 @@ Two implementations of one result:
     reaches ``mid``, so the kernel finds m_k by an exact radix select
     (4 digit passes over the 31-bit pattern) and then runs the 40 steps as
     a scalar recurrence on ``(hi, m_k)``: the same ``lo``, bit for bit.
-    Rows of up to ``MAX_BLOCK`` elements are held in registers and rows of
-    up to 49152 in shared memory (one read of the row); longer ones are
-    re-read from device memory in each pass (5 reads a row);
+    Rows of up to ``MAX_BLOCK`` elements are held in registers (one read
+    of the row); longer ones are re-read from device memory in each pass
+    (5 reads a row);
   * ``block_topk_plain``: the plain PyTorch twin, the reference's 40 f32
     counting steps on whole rows. The CPU tests hold it to the Pallas
     kernel; ``chip_smoke.py`` holds the kernel to it bit for bit.
 
 ``radix_kth_plain`` and ``select_threshold_from_kth`` repeat the kernel's
-route in PyTorch, and ``adversarial_rows`` builds the rows that test it;
-the three are for the tests and ``chip_smoke.py`` only.
+route in PyTorch, for the tests only.
 
 ``block_topk`` picks by the tensor's device: the twin for CPU tensors, the
 kernel for CUDA tensors (it launches or raises — there is no fallback).
@@ -40,15 +39,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
 
 N_ITERS = 40
 #: longest row the Hopper kernels hold in registers (16 elements a thread,
-#: 1024 threads); longer rows take their wide path, which stages rows of up
-#: to 49152 elements in shared memory and re-reads longer ones
+#: 1024 threads); longer rows take their wide path, which re-reads the row
+#: in each digit pass
 MAX_BLOCK = 16384
 #: the kernels' radix digits, most significant first: (shift, bits) of the
 #: 31-bit magnitude pattern
@@ -109,49 +107,6 @@ def select_threshold_from_kth(mag: torch.Tensor, k: int) -> torch.Tensor:
         pred = mk >= mid
         lo, hi = torch.where(pred, mid, lo), torch.where(pred, hi, mid)
     return lo
-
-
-def adversarial_rows(block: int, k: int, seed: int) -> np.ndarray:
-    """16 f32 rows of ``block`` (tests only; seeded numpy) on which a value
-    bisection differs from exact Top-K or a radix select can slip: zeros,
-    ties, huge values, NaN, +-inf, the k-th magnitude below rowmax*2^-40,
-    all denormal, mids falling to denormals, denormal halves, signed zeros,
-    a run of ties across the k-th, patterns one ULP apart across 1.0 (every
-    digit decides), neighbours that differ only in the last digit, one hot
-    first digit (all in [1, 2)), delta-like magnitudes (a few exponents) and
-    last-digit neighbours around the k-th among small values."""
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(16, block)).astype(np.float32)
-    sign = np.where(rng.random((16, block)) < 0.5, -1, 1).astype(np.float32)
-    ar = np.arange(block)
-    x[0] = 0.0                                    # all zeros
-    x[1, : block // 2] = x[1, 0]                  # ties
-    x[2] *= np.float32(1e30)                      # huge
-    x[3, 5 % block] = np.nan                      # NaN: rowmax NaN
-    x[4, 7 % block], x[4, 3 % block] = np.inf, -np.inf
-    x[5] = 0.0                                    # k-th below rowmax*2^-40
-    x[5, 0], x[5, 1:21] = 1.0, 1e-15
-    x[6] *= np.float32(1e-40)                     # all denormal
-    x[7] = 0.0                                    # mids fall to denormals
-    x[7, :20] = 2e-38
-    x[8, : block // 2] *= np.float32(1e-40)       # denormal half
-    x[8, ::7] = -0.0
-    x[9, rng.random(block) < 0.5] = -0.0          # signed zeros
-    x[9, rng.random(block) < 0.25] = 0.0
-    order = np.argsort(-np.abs(x[10]), kind="stable")
-    run = order[max(0, k - 4): k + 3]             # ties across the k-th
-    x[10, run] = np.copysign(np.abs(x[10, order[k - 1]]), x[10, run])
-    ulps = np.uint32(0x3F800000 - block // 2) + rng.permutation(block)
-    x[11] = ulps.astype(np.uint32).view(np.float32) * sign[11]
-    last = np.uint32(0x3F800000) + rng.integers(0, 128, block)
-    x[12] = last.astype(np.uint32).view(np.float32) * sign[12]
-    x[13] = (1.0 + rng.random(block)).astype(np.float32) * sign[13]
-    x[14] *= np.float32(1e-3)
-    x[15] *= np.float32(1e-4)
-    near = rng.permutation(block)[: min(block, 2 * k)]
-    x[15, near] = (np.uint32(0x3C000000) + (ar[: near.size] % 128)).astype(
-        np.uint32).view(np.float32) * sign[15, near]
-    return x
 
 
 def block_topk_plain(x2d: torch.Tensor, k: int):

@@ -14,11 +14,14 @@ kernels need block % 128 == 0; blocks 1 and 1000 are held to the twin).
 Every comparison is exact: the selection is integer counting and the
 recurrence is the reference's own f32 op sequence.
 
-The rows are ``block_topk.adversarial_rows``: zeros, ties, huge, NaN,
+The rows are ``chip_smoke.adversarial_rows``: zeros, ties, huge, NaN,
 +-inf, the k-th below rowmax*2^-40, denormal rows and halves, signed zeros,
 ties across the k-th, patterns one ULP apart across 1.0, last-digit
 neighbours, one hot first digit; k = 1, the default ratio's k and k = block.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +31,18 @@ from repro.kernels.block_topk import block_topk_pallas
 from repro.kernels.ef_update import ef_update_pallas
 from repro_torch.core.compression import k_for_ratio
 from repro_torch.kernels import block_topk as bt
+
+
+def _adversarial_rows():
+    """``chip_smoke.adversarial_rows``: the rows the card run checks too."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.adversarial_rows
+
+
+adversarial_rows = _adversarial_rows()
 
 torch.set_num_threads(1)
 
@@ -42,7 +57,7 @@ def _k(block, which):
 
 def _case(block, which):
     k = _k(block, which)
-    x = bt.adversarial_rows(block, k, seed=block + k)
+    x = adversarial_rows(block, k, seed=block + k)
     return x, k
 
 

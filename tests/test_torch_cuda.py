@@ -13,7 +13,9 @@ Every test here carries the ``cuda`` marker and skips without a CUDA card
 neither ``jax`` nor ``repro``, so it also runs where only PyTorch is
 installed: ``python -m pytest -q tests/test_torch_cuda.py`` on the card.
 """
+import importlib.util
 import math
+import pathlib
 
 import pytest
 import torch
@@ -29,6 +31,18 @@ from repro_torch.kernels import fused_merge as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels import overlap_combine as oc
 from repro_torch.kernels import threshold_find as tf
+
+
+def _adversarial_rows():
+    """``chip_smoke.adversarial_rows``: the rows the card run checks too."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.adversarial_rows
+
+
+adversarial_rows = _adversarial_rows()
 
 pytestmark = pytest.mark.cuda
 
@@ -349,14 +363,14 @@ def test_block_kernels_wide_rows(card):
 
 @pytest.mark.parametrize("block", [1000, 1001, 8192, 16384, 32768, 65536])
 def test_block_kernels_adversarial_rows(card, block):
-    """block_topk.adversarial_rows (one hot first digit, last-digit
+    """chip_smoke.adversarial_rows (one hot first digit, last-digit
     neighbours at the k-th, patterns one ULP apart, ties across the k-th,
     NaN, inf, denormals) on every route: registers with float4 access
-    (1000, 8192, 16384) and without (1001), the wide path staged in shared
-    memory (32768) and re-read from device memory (65536): bit for bit
-    against the twins."""
+    (1000, 8192, 16384) and without (1001), and the wide path, which
+    re-reads the row from device memory (32768, 65536): bit for bit against
+    the twins."""
     for k in (1, max(1, block // 10), block):
-        x = torch.from_numpy(bt.adversarial_rows(block, k, block + k))
+        x = torch.from_numpy(adversarial_rows(block, k, block + k))
         x = x.to(card)
         e = 0.3 * _rows(16, block, card, seed=k).nan_to_num(0.0, 0.0, 0.0)
         v, m = bt.block_topk(x, k)
