@@ -32,7 +32,24 @@
    path on the CPU for all 8 built-in strategies, and one legacy round's
    ``aggregate`` (block_topk + overlap_combine) against the exact plain
    route on the same MLP deltas;
-5. the serve phase (stablelm-1.6b at full width, bf16, random weights from
+5. the scan phase: ``threshold_find``, ``fused_merge`` and
+   ``overlap_combine`` captured into a CUDA graph at the main shape and
+   replayed bit-equal to their eager launches; then the whole-simulation
+   engines at ``FLSimConfig()`` defaults (full width, 40 rounds):
+   ``run_fl(engine="fused")`` and ``run_fl(engine="scan")`` in turn (fused,
+   scan, scan, fused) under each of bcrs_opwa (with the Fig. 4 overlap
+   round), eftopk, qtopk and int4, eftopk with a ``FailureInjector``
+   (p = 0.6: padded cohort slots, rounds of one live client), block Top-K
+   bcrs_opwa (``overlap_combine``),
+   ``pop_scan`` eftopk and ``run_fl_traced``; scan held bit for bit to
+   fused (accuracies, EF residuals, comm times, the histogram), one capture
+   a simulation (two with the overlap round), launches counted replays
+   included, the kernels' device activities a replay counted under the
+   profiler with the replay loop's device-busy share, and a save/restore
+   round trip of a scan's final model and residuals through the port's
+   checkpointer; prints both engines' wall per round and each run's final
+   accuracy;
+6. the serve phase (stablelm-1.6b at full width, bf16, random weights from
    a seed): the present ``flash_attention`` kernel against its twin
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
    equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
@@ -48,7 +65,7 @@
    counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
-6. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+7. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path and 3 decode steps of the serve path (device time by kernel, idle
    share), and the row kernels' device time a call at the main shape.
 
@@ -771,6 +788,263 @@ def ef_entry_point(kern, zero, total):
                 launches=counts)
 
 
+# ------------------------------------------------------------ scan phase
+#: kernel names of the scan path's device activities, by wrapper
+SCAN_KERNELS = {"threshold_find": ("radix_pass",),
+                "fused_merge": ("merge_vec4", "merge_scalar"),
+                "overlap_combine": ("combine_scalar", "combine_vec")}
+
+
+def graph_replay_parity(tf, fm, oc, record):
+    """The scan path's three kernels captured into a CUDA graph at the main
+    path's shape, replayed, and held bit for bit against their eager
+    launches on the same inputs (what the scan engine's replays rely on)."""
+    from repro_torch.kernels import build
+    c, n = MAIN
+    x, e, ks, w, active = make_case(c, n, 7)
+    masks = (torch.rand(c, n, device="cuda") < 0.3).to(torch.int8)
+    vals = x * masks
+
+    def calls():
+        th = tf.threshold_find(x, ks, e)
+        agg, res = fm.fused_merge(x, th, w, e, active, opwa=True, gamma=5.0)
+        return th, agg, res, oc.overlap_combine(vals, masks, w, 5.0, 1)
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with build.captured_launches() as per_replay:
+        with torch.cuda.graph(graph):
+            static = calls()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("threshold_find", "fused_merge agg",
+                           "fused_merge residual", "overlap_combine"),
+                          static, eager):
+        check(bits_equal(a, b), f"{name}: graph replay == eager launch")
+    counts = {f.__name__: k for f, k in per_replay.items()}
+    check(counts == {"threshold_find": 1, "fused_merge": 1,
+                     "overlap_combine": 1},
+          f"launches captured a replay: {counts}")
+    record["graph_replay_parity"] = dict(cases=4, launches_per_replay=counts)
+    print(f"[graph] threshold_find, fused_merge (agg, residual) and "
+          f"overlap_combine replayed bit-equal to eager; per replay {counts}")
+
+
+def scan_kernel_activities(res, prof):
+    """A profiled scan run's device activities of the scan path's kernels,
+    by kernel name, over the whole run (warm-up rounds and replays), its
+    graph launches on the host, and the device-busy share of the replay
+    loop: device time from the first graph launch for the loop's measured
+    wall (the profiler's device clock is mapped onto the host's, so the
+    window's edges are approximate). None when the profiler shows no graph
+    launch."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    launches = [ev.time_range.start for ev in evs
+                if ev.device_type == DeviceType.CPU
+                and "GraphLaunch" in ev.name]
+    if not launches:
+        return None
+    device = [ev for ev in evs if ev.device_type == DeviceType.CUDA]
+    counts = {name: sum(any(p in ev.name for p in pats) for ev in device)
+              for name, pats in SCAN_KERNELS.items()}
+    counts["memset"] = sum("emset" in ev.name for ev in device)
+    t0 = min(launches)
+    t1 = t0 + sum(res.wall_per_round) * 1e6          # us, as the profiler
+    busy_us = sum(ev.time_range.end - ev.time_range.start for ev in device
+                  if t0 <= ev.time_range.start <= t1)
+    return dict(activities=counts, graph_launches=len(launches),
+                device_busy_ms_per_round=busy_us / 1e3 / len(launches),
+                wall_ms_per_round=res.wall_per_round[0] * 1e3,
+                device_busy_share=busy_us / (t1 - t0))
+
+
+def scan_phase(kern, zero, record):
+    """The whole-simulation engines at ``FLSimConfig()`` defaults (full
+    width, 40 rounds): for each of ``STRATEGIES`` fused, scan, scan, fused
+    in turn (bcrs_opwa with the Fig. 4 overlap round), then eftopk with
+    failures, block Top-K bcrs_opwa, pop_scan eftopk and ``run_fl_traced``;
+    each run's launches counted (replays included), scan held bit for bit
+    to fused, one capture a simulation (two with the overlap round); two
+    scan runs under the profiler count the kernels' device activities a
+    replay; a save/restore round trip of a scan's final model and
+    residuals. Returns the launches summed over the runs, per kernel."""
+    import statistics
+    import tempfile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.fed import engine as eng
+    from repro_torch.fed import simulation as simmod
+    from repro_torch.ft import FailureInjector
+    sim = simmod.FLSimConfig()
+    total = dict(zero)
+    runs = {}
+    global_route = {"threshold_find": 1, "fused_merge": 1}
+
+    def one(label, engine, acfg, per_round, overlap=False, **kw):
+        caps0 = sum(eng.CAPTURE_COUNTS.values())
+        if engine == "traced":
+            fn = lambda: simmod.run_fl_traced(sim, acfg, device="cuda", **kw)
+        else:
+            fn = lambda: simmod.run_fl(sim, acfg, engine=engine,
+                                       device="cuda", collect_overlap=overlap,
+                                       **kw)
+        res, counts = drive(kern, fn)
+        caps = sum(eng.CAPTURE_COUNTS.values()) - caps0
+        accs = [a for _, a in res.accuracies]
+        check(all(math.isfinite(v) for v in res.losses + accs),
+              f"{label}: finite losses and accuracies")
+        if res.final_residuals is not None:
+            check(bool(np.isfinite(res.final_residuals).all()),
+                  f"{label}: finite residuals")
+        if engine == "fused":
+            rounds, variants = len(res.executed_rounds), 0
+            want = {k: v * rounds for k, v in per_round.items()}
+            walls = [t * 1e3 for t in res.wall_per_round[1:]]
+        else:
+            # replays of the main graph, plus the warm-up rounds of each
+            # captured variant (an overlap round is a second graph)
+            replays = (sim.rounds if engine == "traced"
+                       else len(res.executed_rounds))
+            variants = 1 + int(overlap)
+            want = {k: v * (replays + eng.WARMUP * variants)
+                    for k, v in per_round.items()}
+            walls = [res.wall_per_round[0] * 1e3]
+            check(caps == variants,
+                  f"{label}: {caps} captures, expected {variants}")
+        if overlap:     # the overlap round's global Top-K on the raw deltas
+            want["threshold_find"] += 1 + eng.WARMUP * (engine != "fused")
+        check_counts(counts, dict(zero, **want), label)
+        for name, n in counts.items():
+            total[name] += n
+        runs.setdefault(label, []).append(dict(
+            engine=engine, accuracies=res.accuracies,
+            final_accuracy=res.final_accuracy,
+            executed_rounds=len(res.executed_rounds), captures=caps,
+            wall_ms_per_round=walls,
+            wall_ms_per_round_median=statistics.median(walls),
+            launches={k: v for k, v in counts.items() if v}))
+        return res
+
+    def same(a, b, what):
+        check([x for _, x in a.accuracies] == [x for _, x in b.accuracies]
+              and a.executed_rounds == b.executed_rounds
+              and a.times.actual == b.times.actual, f"{what}: trajectories")
+        if b.final_residuals is not None:
+            check(np.array_equal(a.final_residuals.view(np.uint32),
+                                 b.final_residuals.view(np.uint32)),
+                  f"{what}: EF residuals bit for bit")
+        if b.overlap_hist is not None:
+            check(np.array_equal(a.overlap_hist, b.overlap_hist),
+                  f"{what}: Fig. 4 overlap histogram")
+
+    for s in STRATEGIES:
+        acfg = AggregationConfig(strategy=s)
+        overlap = s == "bcrs_opwa"
+        f1 = one(f"fused {s}", "fused", acfg, global_route, overlap)
+        s1 = one(f"scan {s}", "scan", acfg, global_route, overlap)
+        s2 = one(f"scan {s}", "scan", acfg, global_route, overlap)
+        f2 = one(f"fused {s}", "fused", acfg, global_route, overlap)
+        same(s1, f1, f"scan == fused {s}")
+        same(s2, s1, f"scan run to run {s}")
+        same(f2, f1, f"fused run to run {s}")
+    eftopk = AggregationConfig(strategy="eftopk")
+    # p = 0.6 leaves rounds of one or two live clients (padded slots)
+    fail = dict(failure=FailureInjector(p_fail=0.6, seed=1))
+    same(one("scan eftopk failures", "scan", eftopk, global_route, **fail),
+         one("fused eftopk failures", "fused", eftopk, global_route, **fail),
+         "scan == fused eftopk with failures")
+    block = AggregationConfig(strategy="bcrs_opwa", block_topk=True)
+    same(one("scan block bcrs_opwa", "scan", block, {"overlap_combine": 1}),
+         one("fused block bcrs_opwa", "fused", block,
+             {"overlap_combine": 1}),
+         "scan == fused block bcrs_opwa")
+    pop = one("pop_scan eftopk", "pop_scan", eftopk, global_route)
+    check(pop.final_residuals.shape[0] == sim.n_clients,
+          "pop_scan: per-client residuals [P, n]")
+    one("run_fl_traced bcrs_opwa", "traced",
+        AggregationConfig(strategy="bcrs_opwa"), global_route)
+
+    # device activities under the profiler: every launch the counters saw
+    # (warm-up rounds and replays) is a device activity, the radix select
+    # three of them; per replay, one merge and three radix passes
+    activities = {}
+    for label, acfg, per_call in (
+            ("scan bcrs_opwa", AggregationConfig(strategy="bcrs_opwa"),
+             {"threshold_find": 3, "fused_merge": 1}),
+            ("scan block bcrs_opwa", block, {"overlap_combine": 1})):
+        def profiled():
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                res = simmod.run_fl(sim, acfg, engine="scan", device="cuda")
+                torch.cuda.synchronize()
+            return res, prof
+        (res, prof), counts = drive(kern, profiled)
+        act = scan_kernel_activities(res, prof)
+        check(act is not None, f"{label}: the profiler shows graph launches")
+        replays = act["graph_launches"]
+        check(replays == len(res.executed_rounds),
+              f"{label}: {replays} graph launches")
+        for name, per in per_call.items():
+            check(counts[name] == replays + eng.WARMUP,
+                  f"{label}: {counts[name]} {name} launches, expected one "
+                  f"a replay and a warm-up round")
+            check(act["activities"][name] == per * counts[name],
+                  f"{label}: {act['activities'][name]} {name} device "
+                  f"activities for {counts[name]} launches, expected {per} "
+                  f"a launch")
+        for name, n in counts.items():
+            total[name] += n
+        activities[label] = dict(act, launches={k: v for k, v in
+                                                counts.items() if v})
+        print(f"[scan profile] {label}: {json.dumps(activities[label])}")
+
+    # a save/restore round trip of a scan's final model and residuals
+    rng, clients, parts, fracs, (xtr, ytr, xte, yte), server = \
+        simmod._setup_sim(sim, eftopk, "cuda")
+    steps = simmod._steps_by_client(clients, sim)
+    res = simmod._run_scan(sim, eftopk, rng, clients, parts, fracs,
+                           server.links, server, steps, int(steps.max()),
+                           xtr, ytr, xte, yte, None, None, False)
+    tree = {"flat": server.flat, "residuals": server.residuals}
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpointer.save(tmp, sim.rounds, tree,
+                          extra={"accuracies": [list(a) for a in
+                                                res.accuracies]})
+        like = {k: torch.zeros_like(v) for k, v in tree.items()}
+        got, step, extra = checkpointer.restore(tmp, like)
+    check(step == sim.rounds and all(
+        got[k].device == tree[k].device and bits_equal(got[k], tree[k])
+        for k in tree), "checkpoint round trip of the scan's final state")
+    acc = simmod.mlp_accuracy(server._unravel(got["flat"]),
+                              torch.as_tensor(xte, device="cuda"),
+                              torch.as_tensor(yte, device="cuda",
+                                              dtype=torch.int64))
+    check(acc == res.final_accuracy and extra["accuracies"][-1][1]
+          == res.final_accuracy, "restored model gives the final accuracy")
+
+    medians = {label: [r["wall_ms_per_round_median"] for r in rs]
+               for label, rs in runs.items()}
+    finals = {label: rs[0]["final_accuracy"] for label, rs in runs.items()}
+    print(f"[scan] wall ms a round (medians, in run order): "
+          f"{json.dumps(medians)}")
+    print(f"[scan] final accuracy after {sim.rounds} rounds: "
+          f"{json.dumps(finals)}")
+    record["scan_phase"] = dict(rounds=sim.rounds, runs=runs,
+                                activities_per_replay=activities,
+                                checkpoint_round_trip=dict(
+                                    step=step, final_accuracy=acc))
+    return total
+
+
 # ------------------------------------------------------ reference check
 def agg_bound(w, vals, gamma, c):
     """The client-sum reordering bound 2*C*2^-24*gamma*sum_c|w_c v_c|."""
@@ -1488,6 +1762,10 @@ def main() -> int:
     print(f"[reference] aggregate_updates kernels vs plain path: max |d agg| "
           f"{record['reference_check_max_abs_agg_diff']:.3g}")
     legacy_reference_check(record)
+    graph_replay_parity(tf, fm, oc, record)
+    scan_launches = scan_phase(kern, {name: 0 for name in kern}, record)
+    for name, n in scan_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.core.aggregation import AggregationConfig
         record["profile"] = profile_path(
@@ -1524,6 +1802,8 @@ def main() -> int:
             "threshold_find_launches_per_call"],
             reads_of_x=record["main_path_reads_of_x"])
                  if name == "threshold_find" else {})
+        if name in scan_launches and scan_launches[name]:
+            extra["scan_phase_launches"] = scan_launches[name]
         if name in ("block_topk", "ef_update"):
             # the wide path ([8, 32768]) and a longer row ([4, 262144])
             for r in rows:

@@ -1,12 +1,15 @@
-"""Wall time per round of the port's fused FL path on one CUDA card, and
+"""Wall time per round of the port's FL paths on one CUDA card, and
 where the card's time per round goes, by kernel, under ``torch.profiler``;
 with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
-    python3 round_times.py [--rows] [--src DIR] [--out PATH]
+    python3 round_times.py [--engine fused|scan] [--rows] [--src DIR]
+                           [--out PATH]
 
-For each of ``STRATEGIES``: ``run_fl(engine="fused")`` at the simulation
-MLP's full width (``FLSimConfig()`` defaults, cohort 5) for ``ROUNDS``
-rounds, host clock per round as ``run_fl`` records it, and the host time
+For each of ``STRATEGIES``: ``run_fl(engine=...)`` ("fused" by default;
+"scan" replays one captured CUDA graph a round, and its wall per round is
+the replay loop's over the rounds) at the simulation MLP's full width
+(``FLSimConfig()`` defaults, cohort 5) for ``ROUNDS`` rounds, host clock
+per round as ``run_fl`` records it, and the host time
 spent inside ``threshold_find_cuda`` (its checks, allocations and
 launches; host clock, no synchronisation) per call; then
 ``PROFILE_ROUNDS`` more rounds under the profiler, device time summed by
@@ -50,20 +53,26 @@ ROW_SHAPES = (("main", (17, 8192)), ("leaf", (1408, 8192)),
               ("wide", (8, 32768)), ("long", (4, 262144)))
 
 
-def profile_rounds(run_fl, sim, acfg):
-    """Device ms per round by kernel name over ``sim.rounds`` rounds."""
+def profile_rounds(run_fl, sim, acfg, engine):
+    """Device ms per round by kernel name over ``sim.rounds`` rounds (the
+    scan engine also runs ``engine.WARMUP`` eager rounds before its
+    capture: they count as rounds here)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_fl(sim, acfg, engine="fused", device="cuda")
+        res = run_fl(sim, acfg, engine=engine, device="cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    rounds = sim.rounds
+    if engine == "scan":
+        from repro_torch.fed.engine import WARMUP
+        rounds += WARMUP
     per_round = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-            per_round[ev.key] = ev.self_device_time_total / 1e3 / sim.rounds
+            per_round[ev.key] = ev.self_device_time_total / 1e3 / rounds
     tf_ms = sum(ms for k, ms in per_round.items()
                 if THRESHOLD_KERNELS.search(k))
     memset_ms = sum(ms for k, ms in per_round.items() if "emset" in k)
@@ -80,8 +89,8 @@ def profile_rounds(run_fl, sim, acfg):
         top_kernels_ms_per_round={k[:80]: v for k, v in top})
 
 
-def round_times(src: str) -> dict:
-    """The fused path's rounds under each of ``STRATEGIES``."""
+def round_times(src: str, engine: str) -> dict:
+    """The ``engine``'s rounds under each of ``STRATEGIES``."""
     from repro_torch.core.aggregation import AggregationConfig
     from repro_torch.fed.simulation import FLSimConfig, run_fl
     from repro_torch.kernels import build
@@ -96,18 +105,20 @@ def round_times(src: str) -> dict:
         host_ms.append((time.perf_counter() - t0) * 1e3)
         return out
     tf.threshold_find_cuda = timed
-    out = dict(src=src, rounds=ROUNDS, gpu=torch.cuda.get_device_name(0),
-               strategies={})
+    out = dict(src=src, engine=engine, rounds=ROUNDS,
+               gpu=torch.cuda.get_device_name(0), strategies={})
     for s in STRATEGIES:
         acfg = AggregationConfig(strategy=s)
         host_ms.clear()
-        res = run_fl(FLSimConfig(rounds=ROUNDS), acfg, engine="fused",
+        res = run_fl(FLSimConfig(rounds=ROUNDS), acfg, engine=engine,
                      device="cuda")
         walls = [t * 1e3 for t in res.wall_per_round]
         calls = list(host_ms[1:])          # the first call loads the library
-        steady = walls[1:]          # round 0 carries the first staging
+        # fused: round 0 carries the first staging; scan: one replay-loop
+        # mean, the same for every round
+        steady = walls[1:]
         prof = profile_rounds(run_fl, FLSimConfig(rounds=PROFILE_ROUNDS),
-                              acfg)
+                              acfg, engine)
         out["strategies"][s] = dict(
             wall_ms=walls, median_ms=statistics.median(steady),
             mean_ms=statistics.fmean(steady), min_ms=min(steady),
@@ -164,6 +175,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
                     help="time block_topk and ef_update, not the rounds")
+    ap.add_argument("--engine", choices=("fused", "scan"), default="fused",
+                    help="the round engine to time (the scan engine needs "
+                         "a tree that has it)")
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -172,7 +186,7 @@ def main() -> int:
         return 1
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
-    out = row_times(src) if args.rows else round_times(src)
+    out = row_times(src) if args.rows else round_times(src, args.engine)
     line = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

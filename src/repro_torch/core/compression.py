@@ -1,7 +1,10 @@
 """Update compressors (torch port of ``repro.core.compression``): exact
 global Top-K, block Top-K (exact per block, or the ``block_topk`` kernel),
 exact traced-k Top-K by bit-pattern bisection, their batched and
-error-feedback forms, and the flat <-> dict-of-tensor helpers.
+error-feedback forms, Rand-K and stochastic quantization (drawn from a
+``torch.Generator``: their own stream, not ``jax.random``'s), the
+``to_sparse`` / ``from_sparse`` wire format, and the flat <-> dict-of-tensor
+helpers.
 
 The dense-masked representation (values kept, others zero + bool mask) is
 the reference's. Bit patterns of ``|x|`` are compared on the ``int32`` view:
@@ -35,6 +38,16 @@ def k_for_ratio(n: int, cr: float) -> int:
     parameters: round(n·cr) clamped to [1, n] (Python ``round`` in f64, CR=1
     keeps everything exactly) — the reference's rule, unchanged."""
     return max(1, min(n, int(round(n * cr))))
+
+
+def k_for_ratio_traced(n: int, crs: torch.Tensor) -> torch.Tensor:
+    """Device twin of ``k_for_ratio`` for per-client CRs held in a tensor:
+    crs (any shape) -> int32 retained counts by the same
+    clip(round(cr·n), 1, n) rule, rounded in f32 (half to even, as
+    ``jnp.round``) where the host rounds in f64 — the reference's traced
+    twin, op for op."""
+    return torch.clamp(torch.round(crs.to(torch.float32) * n)
+                       .to(torch.int32), 1, n)
 
 
 def resolve_use_kernel(flag, device) -> bool:
@@ -150,6 +163,38 @@ def block_topk_compress_batch(updates: torch.Tensor, ks_block: torch.Tensor,
                       comp.mask.reshape(c, -1)[:, :n])
 
 
+def randk_compress(u: torch.Tensor, cr: float,
+                   generator: torch.Generator) -> Compressed:
+    """Unbiased Rand-K of a flat ``u`` [n]: ``k_for_ratio(n, cr)`` distinct
+    coordinates drawn uniformly from ``generator`` (the order of a uniform
+    draw's argsort), kept and rescaled by n/k."""
+    n = u.shape[0]
+    k = k_for_ratio(n, cr)
+    idx = torch.rand(n, generator=generator,
+                     device=generator.device).argsort()[:k].to(u.device)
+    mask = torch.zeros(n, dtype=torch.bool, device=u.device)
+    mask.index_fill_(0, idx, True)
+    return Compressed(torch.where(mask, u * (n / k), torch.zeros_like(u)),
+                      mask)
+
+
+def quantize_stochastic(u: torch.Tensor, bits: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """QSGD-style stochastic uniform quantization (dense; no mask): each
+    entry rounds up to the next grid point of ``max|u| / (2^(bits-1) - 1)``
+    with probability equal to its distance from the one below, so
+    ``E[q] = u``."""
+    levels = 2 ** (bits - 1) - 1
+    scale = torch.abs(u).max() / levels
+    scaled = u / torch.clamp(scale, min=1e-12)
+    lower = torch.floor(scaled)
+    p = scaled - lower
+    rnd = torch.rand(u.shape, generator=generator,
+                     device=generator.device).to(u.device)
+    q = lower + (rnd < p).to(u.dtype)
+    return q * scale
+
+
 def ef_compress_batch(residuals: torch.Tensor, updates: torch.Tensor,
                       ks: torch.Tensor,
                       compress_batch: Callable = topk_compress_batch
@@ -170,3 +215,30 @@ def ef_compress(residual: torch.Tensor, u: torch.Tensor, cr: float,
     corrected = residual + u
     comp = compress(corrected, cr)
     return comp, corrected - comp.values
+
+
+# ------------------------------------------------------------ sparse format
+def to_sparse(comp: Compressed, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-masked -> (indices int32 [k], values [k]) wire format, largest
+    magnitude first, ties by the lower index (``lax.top_k``'s order: a
+    stable descending sort, since ``torch.topk`` promises no tie order).
+    Entries beyond the retained count are index -1, value 0."""
+    mag = torch.where(comp.mask, torch.abs(comp.values.to(torch.float32)),
+                      torch.full_like(comp.values, -1.0,
+                                      dtype=torch.float32))
+    idx = torch.sort(mag, descending=True, stable=True).indices[:k]
+    valid = comp.mask[idx]
+    vals = comp.values[idx] * valid.to(comp.values.dtype)
+    neg = torch.full_like(idx, -1)
+    return torch.where(valid, idx, neg).to(torch.int32), vals
+
+
+def from_sparse(indices: torch.Tensor, values: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """(indices, values) -> dense [n]; index -1 entries dropped (they add
+    0 at index 0, as the reference's scatter-add does)."""
+    keep = indices >= 0
+    safe = torch.where(keep, indices, torch.zeros_like(indices)).long()
+    contrib = torch.where(keep, values, torch.zeros_like(values))
+    return torch.zeros((n,), dtype=values.dtype,
+                       device=values.device).index_add_(0, safe, contrib)

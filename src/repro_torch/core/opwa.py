@@ -37,6 +37,20 @@ def weighted_sum(coeffs: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(c, u, dims=([0], [0]))
 
 
+def overlap_histogram(masks: torch.Tensor,
+                      k_max: Optional[int] = None) -> torch.Tensor:
+    """Counts-of-counts for the paper's Fig. 4 (degree-of-overlap
+    distribution): int32 [k_max + 1], degree d at index d. Degrees above
+    ``k_max`` (default: the number of clients) are dropped, as
+    ``jnp.bincount(length=)`` drops them; ``torch.bincount(minlength=)``
+    keeps them, so the result is cut to length."""
+    counts = overlap_counts(masks)
+    k_max = k_max or masks.shape[0]
+    hist = torch.bincount(counts.reshape(-1).to(torch.int64),
+                          minlength=k_max + 1)
+    return hist[: k_max + 1].to(torch.int32)
+
+
 def opwa_aggregate(updates: torch.Tensor, masks: torch.Tensor,
                    coeffs: torch.Tensor, gamma: float, d: int = 1,
                    use_kernel="auto") -> torch.Tensor:
@@ -79,3 +93,10 @@ def opwa_aggregate_traced_k(updates: torch.Tensor, ks: torch.Tensor,
         vals = vals * active[:, None]
         mask = mask & active[:, None]
     return opwa_aggregate(vals, mask, coeffs, gamma, d, use_kernel=False)
+
+
+def bcrs_aggregate(updates: torch.Tensor, coeffs: torch.Tensor
+                   ) -> torch.Tensor:
+    """BCRS-only aggregation (uniform parameter weights): the Eq. 6
+    weighted sum of flat client updates [K, n] -> [n] f32."""
+    return weighted_sum(coeffs, updates)

@@ -149,8 +149,9 @@ def quantization_scale(absmax, levels):
     exact zeros and EF keeps them). PyTorch keeps IEEE denormals, so the
     flush is written out here to give the same scale on every input.
     """
-    recip = torch.tensor(float(np.float32(1.0 / levels)), dtype=torch.float32,
-                         device=absmax.device)
+    # a fill on the device, not a host copy: a CUDA graph captures it
+    recip = torch.full((), float(np.float32(1.0 / levels)),
+                       dtype=torch.float32, device=absmax.device)
     scaled = absmax.to(torch.float32) * recip
     scaled = torch.where(scaled.abs() < torch.finfo(torch.float32).tiny,
                          torch.zeros_like(scaled), scaled)

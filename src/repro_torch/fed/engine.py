@@ -1,5 +1,5 @@
-"""Flat-space compression/aggregation substrate (torch port of the flat
-half of ``repro.fed.engine``).
+"""Flat-space compression/aggregation substrate and the whole-simulation
+engine (torch port of the flat half of ``repro.fed.engine``).
 
   * ``ClientUpdateSpec`` / ``spec_for`` — static description of the client
     update pipeline (strategy, global or block Top-K, kernel routing, OPWA
@@ -12,21 +12,36 @@ half of ``repro.fed.engine``).
     whole pipeline is the two Hopper kernels ``threshold_find`` +
     ``fused_merge`` (global Top-K) or the traced-k block compressor and the
     ``overlap_combine`` kernel (block Top-K); the plain path is the
-    reference's jnp path.
+    reference's jnp path;
+  * ``sparsify_rows`` / ``densify_rows`` — the sparse (idx, val) row codec
+    of the population client-state store;
+  * ``make_sim_scan`` — the whole multi-round simulation: on the card one
+    captured CUDA graph of the round, replayed once a round over
+    device-resident plan rows (``SimScan``).
 
 Everything strategy-shaped is read from the capability record; this module
 never matches strategy names.
 """
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.core import opwa as opwa_mod
 from repro_torch.core import strategies as strat_mod
+
+#: ("sim_scan" | "pop_scan", strategy, with_overlap) -> simulations built by
+#: ``make_sim_scan``: one a simulation, however many rounds it runs (the
+#: reference's ``TRACE_COUNTS``)
+BUILD_COUNTS: collections.Counter = collections.Counter()
+#: the same keys -> CUDA graphs captured: one a simulation on the card, two
+#: when it holds the Fig. 4 overlap round
+CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 
 # ------------------------------------------------------------------- spec
@@ -118,6 +133,39 @@ def flatten_client_trees(deltas: Dict[str, torch.Tensor]) -> torch.Tensor:
     """dict of [C, ...] tensors -> [C, n] f32 in sorted-key (ravel) order."""
     return torch.cat([deltas[k].reshape(deltas[k].shape[0], -1)
                       .to(torch.float32) for k in sorted(deltas)], dim=1)
+
+
+# ------------------------------------------------- sparse EF residual codec
+def sparsify_rows(rows: torch.Tensor, width: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[C, n] f32 -> (idx [C, width] int32, val [C, width] f32, overflow).
+
+    The population client-state store's "topk_complement" residual layout:
+    a stable argsort on the zero flag packs each row's nonzero coordinates
+    first, in ascending index order; padding entries carry the zero values
+    at their own coordinates, so ``densify_rows`` adds them back as exact
+    no-ops. A denormal counts as zero, as on the reference's platforms
+    (which flush f32 denormals). ``overflow`` (bool scalar) is True iff some
+    row has more than ``width`` nonzeros."""
+    mag = torch.abs(rows.to(torch.float32))
+    zero = mag < torch.finfo(torch.float32).tiny    # NaN counts as nonzero
+    order = torch.argsort(zero.to(torch.int8), dim=1, stable=True)[:, :width]
+    val = torch.gather(rows, 1, order)
+    overflow = ((~zero).sum(dim=1) > width).any()
+    return order.to(torch.int32), val, overflow
+
+
+def densify_rows(idx: torch.Tensor, val: torch.Tensor, n: int
+                 ) -> torch.Tensor:
+    """(idx [C, W] int32, val [C, W] f32) -> [C, n] f32, the inverse of
+    ``sparsify_rows``: a scatter-add onto zeros, each stored value landing
+    at its own coordinate (within a row the indices are distinct). A
+    denormal that lands on a zero is flushed, as the reference's platforms
+    add it (0 + denormal = 0 there)."""
+    rows = torch.zeros((idx.shape[0], n), dtype=val.dtype, device=val.device)
+    rows.scatter_add_(1, idx.to(torch.int64), val)
+    return torch.where(torch.abs(rows) < torch.finfo(torch.float32).tiny,
+                       torch.zeros_like(rows), rows)
 
 
 # ----------------------------------------------------------- masked trainer
@@ -240,3 +288,293 @@ def aggregate_updates(spec: ClientUpdateSpec, updates: torch.Tensor,
     else:
         agg = opwa_mod.weighted_sum(w, vals)
     return agg, new_res
+
+
+# ------------------------------------------------------------ round body
+def make_round_body(loss_fn: Callable, params_template, *, lr: float,
+                    spec: ClientUpdateSpec, eta: float = 1.0,
+                    make_batches: Optional[Callable] = None) -> Callable:
+    """One FL round on a plan, in place — the body the fused round step
+    (``round_step.make_round_step``) and the scan engines
+    (``make_sim_scan``) share, so both run the same ops on the same
+    shapes::
+
+        body(flat [n] f32,               # UPDATED IN PLACE: w <- w - eta*agg
+             residuals,                  # EF state, UPDATED IN PLACE: [C, n]
+                                         # (or [P + 1, n] with ``cohort``);
+                                         # unused without EF
+             plan: {"step_mask" [C, S] bool, "active" [C] bool,
+                    "weights" [C] f32, "ks" [C] int,
+                    + what ``make_batches`` reads (default "batches"),
+                    + "ks_overlap" [C] int when ``overlap``},
+             overlap: bool,              # the Fig. 4 counts this round
+             cohort=None)                # [C] int64 slot -> residuals row
+        -> {"loss": mean over active slots of the last local losses
+            [, "overlap_counts" [n] int32] + plan.get("ys_extra", {})}
+
+    Masked local SGD for the cohort, ``flatten_client_trees``,
+    ``aggregate_updates(..., active=)``, the server update and the
+    residuals written back. Inactive (padded) slots contribute nothing;
+    with ``cohort`` they write back what they read (a per-client matrix's
+    sentinel row stays zero)."""
+    unflatten = make_unflatten(params_template)
+    local_train = make_masked_local_trainer(loss_fn, lr)
+    get_batches = make_batches or (lambda p: p["batches"])
+    ef = spec.needs_residuals
+
+    def body(flat, res, p, overlap: bool, cohort=None):
+        deltas, losses = local_train(unflatten(flat), get_batches(p),
+                                     p["step_mask"])
+        updates = flatten_client_trees(deltas)          # [C, n] f32
+        active = p["active"]
+        res_in = res.index_select(0, cohort) if cohort is not None else res
+        agg, new_res = aggregate_updates(
+            spec, updates, p["weights"], p["ks"],
+            residuals=res_in if ef else None, active=active)
+        if ef and cohort is not None:
+            res.index_copy_(0, cohort,
+                            torch.where(active[:, None], new_res, res_in))
+        elif ef:
+            res.copy_(new_res)
+        flat.sub_(eta * agg)
+        n_act = active.to(torch.int32).sum().clamp_min(1)
+        ys = {"loss": torch.where(active, losses,
+                                  torch.zeros_like(losses)).sum() / n_act}
+        ys.update(p.get("ys_extra", {}))
+        if overlap:
+            # Fig. 4 instrumentation: global top-k masks on the RAW deltas
+            masks = comp.topk_compress_batch(
+                updates, p["ks_overlap"],
+                use_kernel=spec.use_kernel).mask & active[:, None]
+            ys["overlap_counts"] = opwa_mod.overlap_counts(masks)
+        return ys
+
+    return body
+
+
+# ---------------------------------------------------------- scanned simulation
+#: xs entries the host reads itself: the events a captured round cannot
+#: hold (an eval snapshot, an EF reset, the Fig. 4 overlap round)
+HOST_KEYS = ("eval_write", "eval_slot", "reset_ef", "overlap_round")
+#: eager warm-up rounds before each capture, on scratch copies of the state
+WARMUP = 2
+
+
+def _map_tree(fn: Callable, tree):
+    """``fn`` over the leaves of a (nested) dict."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class SimScan:
+    """The whole-simulation program of ``make_sim_scan``.
+    ``compile(flat, residuals, evals, xs)`` prepares it for those buffers
+    (on the card: xs copied once, the round captured) and returns a
+    ``ScanProgram``; calling that runs every round. ``sim(flat, residuals,
+    evals, xs)`` does both."""
+
+    def __init__(self, round_fn: Callable, spec: ClientUpdateSpec,
+                 with_overlap: bool, kind: str, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.round_fn = round_fn
+        self.spec = spec
+        self.with_overlap = with_overlap
+        self.kind = kind
+        self.device = device
+        self.generator = generator
+
+    def compile(self, flat, residuals, evals, xs) -> "ScanProgram":
+        return ScanProgram(self, flat, residuals, evals, xs)
+
+    def __call__(self, flat, residuals, evals, xs):
+        return self.compile(flat, residuals, evals, xs)()
+
+
+class ScanProgram:
+    """One simulation's rounds, bound to its ``flat`` [n], ``residuals``
+    and ``evals`` [E, n] buffers, which it updates in place.
+
+    The plan rows ``xs`` (numpy or tensors, [R, ...]) are put on the device
+    once. A device-resident round counter picks each round's row inside the
+    round, and the round advances it, so a round takes no host-to-device
+    copy. On the card the round is captured once into a ``CUDAGraph`` (the
+    body first warmed up on a side stream on scratch copies of the state,
+    as PyTorch's whole-network capture requires) and R rounds are R
+    replays; with an overlap round a second graph, sharing the first's
+    memory pool, holds the round with the Fig. 4 counts. The graphs run the
+    same kernels as an eager round, so replays are bit-equal to it. On the
+    CPU the same round runs eagerly, once a row.
+
+    What a scan carries under ``lax.cond`` stays on the host here, since
+    the host knows it ahead: ``reset_ef`` zeroes the residuals before its
+    round, ``eval_write`` copies the model into ``evals[eval_slot]`` after
+    its round (an O(E x n) buffer, never the model every round), and
+    ``overlap_round`` replays the overlap graph instead. Calling the
+    program runs all rounds and returns ``{"flat", "residuals", "evals",
+    "ys"}``, ``ys`` holding a [R, ...] tensor for each per-round output of
+    the round (``loss``, the Fig. 4 ``overlap_counts`` [R, n], a traced
+    plan's ``ys_extra``). Capture failure raises; nothing falls back to
+    eager rounds on the card."""
+
+    def __init__(self, sim: SimScan, flat, residuals, evals, xs):
+        self.sim = sim
+        dev = sim.device
+        self.host = {k: np.asarray(xs[k]) for k in HOST_KEYS if k in xs}
+        self.rounds = int(self.host["eval_write"].shape[0])
+        self.xs = _map_tree(lambda v: torch.as_tensor(v, device=dev),
+                            {k: v for k, v in xs.items()
+                             if k not in HOST_KEYS})
+        self.flat, self.residuals, self.evals = flat, residuals, evals
+        self.counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.ys: Dict[str, torch.Tensor] = {}
+        if sim.with_overlap:
+            self.ys["overlap_counts"] = torch.zeros(
+                (self.rounds, flat.shape[0]), dtype=torch.int32, device=dev)
+        self.overlap = bool(sim.with_overlap and "overlap_round" in self.host
+                            and self.host["overlap_round"].any())
+        self.graphs = {}
+        self.launches_per_replay = {}
+        if dev.type == "cuda":
+            self._capture()
+
+    def _step(self, flat, residuals, counter, overlap: bool) -> None:
+        """One round on the given state: read row ``counter``, run the
+        round, record its outputs in ``ys`` at that row, advance."""
+        row = _map_tree(lambda v: v.index_select(0, counter)[0], self.xs)
+        out = self.sim.round_fn(flat, residuals, row, overlap)
+        for key, val in out.items():
+            buf = self.ys.get(key)
+            if buf is None:
+                buf = self.ys[key] = torch.zeros(
+                    (self.rounds,) + tuple(val.shape), dtype=val.dtype,
+                    device=val.device)
+            buf.index_copy_(0, counter, val.unsqueeze(0))
+        counter.add_(1)
+
+    def _capture(self) -> None:
+        from repro_torch.kernels import build
+        from repro_torch.kernels.threshold_find import threshold_find
+        sim = self.sim
+        variants = [False] + ([True] if self.overlap else [])
+        reads_log, threshold_find.reads_log = threshold_find.reads_log, None
+        try:
+            # warm-up on a side stream, on scratch copies of the state: the
+            # first calls load the kernels, cuBLAS and the autograd engine
+            # and fill the allocator, none of which a capture may do
+            side = torch.cuda.Stream(self.flat.device)
+            side.wait_stream(torch.cuda.current_stream(self.flat.device))
+            with torch.cuda.stream(side):
+                flat_w = self.flat.clone()
+                res_w = self.residuals.clone()
+                counter_w = torch.zeros_like(self.counter)
+                for overlap in variants:
+                    for _ in range(WARMUP):
+                        counter_w.zero_()
+                        self._step(flat_w, res_w, counter_w, overlap)
+            torch.cuda.current_stream(self.flat.device).wait_stream(side)
+            for buf in self.ys.values():
+                buf.zero_()
+            pool = None
+            for overlap in variants:
+                graph = torch.cuda.CUDAGraph()
+                if sim.generator is not None:
+                    graph.register_generator_state(sim.generator)
+                with build.captured_launches() as per_replay:
+                    with torch.cuda.graph(graph, pool=pool):
+                        self._step(self.flat, self.residuals, self.counter,
+                                   overlap)
+                pool = graph.pool()
+                self.graphs[overlap] = graph
+                self.launches_per_replay[overlap] = per_replay
+                CAPTURE_COUNTS[(sim.kind, sim.spec.strategy,
+                                sim.with_overlap)] += 1
+        finally:
+            threshold_find.reads_log = reads_log
+
+    def __call__(self):
+        host = self.host
+        self.counter.zero_()
+        for i in range(self.rounds):
+            if "reset_ef" in host and host["reset_ef"][i]:
+                self.residuals.zero_()
+            overlap = self.overlap and bool(host["overlap_round"][i])
+            if self.graphs:
+                self.graphs[overlap].replay()
+                for wrapper, n in self.launches_per_replay[overlap].items():
+                    wrapper.launches += n
+            else:
+                self._step(self.flat, self.residuals, self.counter, overlap)
+            if host["eval_write"][i]:
+                self.evals[int(host["eval_slot"][i])].copy_(self.flat)
+        return {"flat": self.flat, "residuals": self.residuals,
+                "evals": self.evals, "ys": self.ys}
+
+
+def make_sim_scan(loss_fn: Callable, params_template, *, lr: float,
+                  acfg, eta: float = 1.0, with_overlap: bool = False,
+                  make_batches: Optional[Callable] = None,
+                  plan_fn: Optional[Callable] = None,
+                  population: Optional[int] = None, device="cuda",
+                  generator: Optional[torch.Generator] = None) -> SimScan:
+    """The ENTIRE multi-round FL simulation as one program (the reference's
+    ``lax.scan`` lowering): the server's flat params and EF residuals are
+    carried in place from round to round, and everything the host scheduler
+    decides per round arrives as stacked ``[R, ...]`` plan rows ``xs``::
+
+        sim(flat [n] f32,
+            residuals [C, n] f32 ([0] when the strategy carries no EF),
+            evals [E, n] f32 (zeros; E = number of eval rounds >= 1),
+            xs: {
+              "step_mask"  [R, C, S] bool,   # padded-step validity
+              "active"     [R, C]    bool,   # padded cohort-slot validity
+              "weights"    [R, C]    f32,    # 0 at inactive slots
+              "ks"         [R, C]    int32,
+              "eval_write" [R]       bool,   # snapshot the model this round
+              "eval_slot"  [R]       int32,  # evals row it lands in
+              "reset_ef"   [R]       bool,   # EF only: cohort resized
+              + whatever ``make_batches`` consumes (default: "batches", a
+                dict of [R, C, S, ...] stacked client batches; the
+                simulation passes [R, C, S, B] sample indices and a gather
+                from the training set held once on the device),
+              + with_overlap: "ks_overlap" [R, C] int32, "overlap_round" [R]
+            })
+        -> {"flat": [n], "residuals", "evals": [E, n],
+            "ys": {"loss" [R][, "overlap_counts" [R, n]]}}
+
+    The round is ``make_round_body``, the fused round step's body (on the
+    card ``threshold_find`` + ``fused_merge`` on the global route,
+    ``overlap_combine`` on the block route). How the rounds run, and which
+    events stay on the host, is ``ScanProgram``'s docstring.
+
+    ``plan_fn`` (optional) maps each raw xs row to the plan the body reads
+    — the hook through which ``simulation.run_fl_traced`` draws cohorts,
+    survivals, arrivals and batches inside the round from ``generator``
+    (registered with the captured graph, so each replay draws anew). A
+    plan's "ys_extra" dict is recorded per round in ``ys``.
+
+    ``population=P`` switches to PER-CLIENT residuals (the "pop_scan"
+    engine): ``residuals`` is ``[P + 1, n]``, the xs gain ``"cohort" [R, C]
+    int32`` (slot -> client id), and each round gathers the cohort's rows
+    into the ``[C, n]`` slots, runs the unchanged body, and scatters the
+    updated rows back. Row P is a sentinel: padded slots point at it and
+    write back what they read (zeros), so duplicate sentinel writes are
+    value-identical and the row stays zero. ``reset_ef`` does not apply.
+
+    ``BUILD_COUNTS[(kind, strategy, with_overlap)]`` counts this call.
+    """
+    dev = torch.device(device)
+    spec = spec_for(acfg, dev)
+    body = make_round_body(loss_fn, params_template, lr=lr, spec=spec,
+                           eta=eta, make_batches=make_batches)
+    per_client = population is not None and spec.needs_residuals
+    kind = "pop_scan" if population is not None else "sim_scan"
+
+    def round_fn(flat, res, x, overlap):
+        p = plan_fn(x) if plan_fn is not None else x
+        return body(flat, res, p, overlap,
+                    cohort=x["cohort"].to(torch.int64) if per_client
+                    else None)
+
+    BUILD_COUNTS[(kind, spec.strategy, with_overlap)] += 1
+    return SimScan(round_fn, spec, with_overlap, kind, dev, generator)

@@ -45,6 +45,7 @@ class FLServer:
         self.v_bytes = float(self.n_params * 4)   # fp32 update bytes
         self._fused_step = None
         self._fused_step_overlap = None
+        self._live = None     # the live cohort size of the last fused round
 
     # ------------------------------------------------------------------
     def _selected_links(self, selected):
@@ -108,45 +109,53 @@ class FLServer:
     def round_fused(self, batches, step_mask, data_fracs: np.ndarray,
                     selected: np.ndarray, want_overlap: bool = False) -> dict:
         """One fused round: ``batches`` is a dict of [C, S, ...] stacked
-        client batches, ``step_mask`` [C, S] marks real local steps."""
+        client batches, ``step_mask`` [C, S] marks real local steps. C may
+        exceed the live cohort ``selected``: the slots past it are padding
+        (every step masked) that takes no part in the round — the scan
+        engines' slot layout, so both engines run the same shapes. EF
+        residuals live in a [C, n] buffer, reset whenever the live cohort's
+        size changes (the reference's rule)."""
         if self._fused_step is None:
             raise RuntimeError("call init_fused(loss_fn, lr) first")
-        k = int(step_mask.shape[0])
+        slots, k = int(step_mask.shape[0]), len(selected)
         links = self._selected_links(selected)
         crs, weights, info = agg_mod.round_schedule(
             self.acfg, k, data_fracs, links, self.v_bytes)
-        ks = torch.as_tensor(agg_mod.ks_for_schedule(self.n_params, crs,
-                                                     self.acfg),
-                             device=self.device)
+
+        def slotted(values, fill, dtype):
+            out = np.full((slots,), fill, dtype)
+            out[:k] = values
+            return torch.as_tensor(out, device=self.device)
+
+        ks = slotted(agg_mod.ks_for_schedule(self.n_params, crs, self.acfg),
+                     1, np.int32)
         if want_overlap:
             if self._fused_step_overlap is None:
                 raise RuntimeError(
                     "round_fused(want_overlap=True) needs "
                     "init_fused(..., collect_overlap=True)")
-            ks_overlap = torch.as_tensor(
-                agg_mod.overlap_ks(self.acfg, info, k, self.n_params),
-                device=self.device)
+            ks_overlap = slotted(
+                agg_mod.overlap_ks(self.acfg, info, k, self.n_params), 1,
+                np.int32)
         else:
             ks_overlap = ks    # ignored by the non-instrumented step
 
         residuals = None
         if self.acfg.strat.needs_residuals:
-            # reset whenever the cohort size changes (the reference's rule)
-            if self.residuals is None or self.residuals.shape[0] != k:
-                self.residuals = torch.zeros((k, self.n_params),
+            if (self.residuals is None or self._live != k
+                    or self.residuals.shape[0] != slots):
+                self.residuals = torch.zeros((slots, self.n_params),
                                              dtype=torch.float32,
                                              device=self.device)
             residuals = self.residuals
+        self._live = k
 
         step = self._fused_step_overlap if want_overlap else self._fused_step
-        w = torch.as_tensor(np.asarray(weights, np.float32),
-                            device=self.device)
-        # the step updates self.flat in place (w <- w - eta*agg), so
-        # self.params, which are views of it, follow without a copy
-        out = step(self.flat, residuals, batches, step_mask, w, ks,
-                   ks_overlap)
-        if self.acfg.strat.needs_residuals:
-            self.residuals = out["residuals"]
+        # the step updates self.flat (w <- w - eta*agg) and the residuals in
+        # place, so self.params, which are views of the flat, follow
+        out = step(self.flat, residuals, batches, step_mask,
+                   slotted(weights, 0.0, np.float32), ks, ks_overlap,
+                   slotted(True, False, bool))
         info["loss"] = out["loss"]
         if "overlap_counts" in out:
             info["overlap_counts"] = out["overlap_counts"]

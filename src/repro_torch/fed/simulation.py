@@ -1,5 +1,5 @@
-"""End-to-end FL simulation harness (torch port of ``repro.fed.simulation``,
-``engine="fused"`` and ``engine="legacy"``).
+"""End-to-end FL simulation harness (torch port of ``repro.fed.simulation``:
+``engine="fused" | "legacy" | "scan" | "pop_scan"`` and ``run_fl_traced``).
 
 Same protocol as the reference on the same synthetic Dirichlet-partitioned
 data: for each round, sample C·N clients -> E local epochs of SGD on the
@@ -10,6 +10,12 @@ round: cohort, batches), so datasets, cohorts and batches are identical to
 reference draws them from ``jax.random``, the port from its own seeded
 ``torch.Generator`` — pass ``init_params`` (e.g. the reference's, through
 ``repro_torch.convert``) to start from the same weights.
+
+The scan engines plan every round on the host first (``_plan_rounds``, the
+same rng calls as the fused loop), then run the whole trajectory through
+``engine.make_sim_scan``: on the card one captured CUDA graph of the round,
+replayed once a round. ``run_fl_traced`` draws its plans inside the round
+from a ``torch.Generator`` instead (its own stream).
 """
 from __future__ import annotations
 
@@ -29,10 +35,14 @@ from repro_torch.core.opwa import overlap_counts
 from repro_torch.data import (build_client_datasets, data_fractions,
                               dirichlet_partition, synthetic_classification)
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.fed import engine as engine_mod
 from repro_torch.fed.client import make_local_trainer
 from repro_torch.fed.server import FLServer
 from repro_torch.ft import (FailureInjector, StragglerPolicy, arrivals,
                             over_select)
+from repro_torch.ft.failures import survivors_traced
+from repro_torch.ft.straggler import (arrival_mask_traced,
+                                      renormalize_coefficients_traced)
 
 
 # --------------------------------------------------------------- small model
@@ -193,6 +203,14 @@ def _steps_by_client(clients, sim: FLSimConfig) -> np.ndarray:
     return steps
 
 
+def planned_client_steps(sim: FLSimConfig) -> np.ndarray:
+    """Per-client local step counts (cap applied) for ``sim``'s seeded
+    dataset — the partition every engine trains on, rebuilt through
+    ``_setup_sim`` (on the CPU: only the host partition is read)."""
+    _, clients, *_ = _setup_sim(sim, agg_mod.AggregationConfig(), "cpu")
+    return _steps_by_client(clients, sim)
+
+
 def cohort_slots(n_clients: int, participation: float) -> int:
     """Target cohort size C·N (the reference's rounding rule)."""
     return max(1, int(round(n_clients * participation)))
@@ -231,13 +249,16 @@ def plan_cohort(rnd: int, rng, *, n_clients: int, participation: float,
 
 
 def _stack_client_batches(clients, selected, sim: FLSimConfig,
-                          steps_by_client, s_max: int, rng
+                          steps_by_client, s_max: int, rng,
+                          slots: Optional[int] = None
                           ) -> Tuple[dict, np.ndarray]:
     """Draw each selected client's batches (the reference's rng calls, in
-    cohort order), zero-pad to ``s_max`` steps, stack to [C, S, ...] + mask
-    [C, S]. Padded steps are exact no-ops in the trainer."""
+    cohort order), zero-pad to ``s_max`` steps, stack to [slots, S, ...] +
+    mask [slots, S] (``slots`` defaults to the cohort's size). Padded steps,
+    and the slots past the cohort, are exact no-ops in the trainer."""
+    slots = len(selected) if slots is None else slots
     xs_all, ys_all = [], []
-    mask = np.zeros((len(selected), s_max), bool)
+    mask = np.zeros((slots, s_max), bool)
     for j, c in enumerate(selected):
         ds = clients[c]
         steps = int(steps_by_client[c])
@@ -250,6 +271,9 @@ def _stack_client_batches(clients, selected, sim: FLSimConfig,
         xs_all.append(xs)
         ys_all.append(ys)
         mask[j, :steps] = True
+    for _ in range(slots - len(selected)):
+        xs_all.append(np.zeros_like(xs_all[0]))
+        ys_all.append(np.zeros_like(ys_all[0]))
     batches = {"x": np.stack(xs_all), "y": np.stack(ys_all)}
     return batches, mask
 
@@ -257,6 +281,15 @@ def _stack_client_batches(clients, selected, sim: FLSimConfig,
 def _is_eval_round(sim: FLSimConfig, rnd: int) -> bool:
     """The eval cadence: every ``eval_every`` rounds and the last round."""
     return rnd % sim.eval_every == 0 or rnd == sim.rounds - 1
+
+
+def _eval_plan(sim: FLSimConfig, rnds) -> Tuple[np.ndarray, np.ndarray]:
+    """(eval_write bool [len(rnds)], eval_slot int32 [len(rnds)]) for the
+    given executed round numbers — the scan engines' snapshot schedule."""
+    write = np.array([_is_eval_round(sim, r) for r in rnds], bool)
+    slot = np.zeros((len(write),), np.int32)
+    slot[write] = np.arange(int(write.sum()), dtype=np.int32)
+    return write, slot
 
 
 def _overlap_hist(counts: np.ndarray, cohort_size: int) -> np.ndarray:
@@ -316,17 +349,25 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     ``checkpoint_every`` and ``stop_after`` belong to the async engine.
     ``init_params`` starts from given weights instead of the port's seeded
     init. ``FLSimResult.losses`` holds each round's mean over the cohort of
-    the clients' last local losses."""
+    the clients' last local losses.
+
+    "scan" plans every round on the host (the fused loop's rng calls, in
+    its order) and runs the trajectory as one program
+    (``engine.make_sim_scan``; on the card a captured CUDA graph of the
+    round, replayed once a round), bit-equal to "fused"; "pop_scan" does the
+    same with per-client EF residuals in a dense ``[P + 1, n]`` carry
+    (``sim.n_clients`` is the population P), which survive cohort
+    resizes."""
     if engine is None:
         engine = "fused" if fused else "legacy"
     if engine not in ("legacy", "fused", "scan", "pop_scan", "population",
                       "async"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine not in ("fused", "legacy"):
-        item = {"scan": 2, "pop_scan": 5, "population": 5, "async": 6}[engine]
+    if engine in ("population", "async"):
+        item = {"population": 5, "async": 6}[engine]
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet ('fused' and 'legacy' "
-            f"are): ROADMAP queue 1 item {item}")
+            f"engine={engine!r} is not ported yet ('fused', 'legacy', "
+            f"'scan' and 'pop_scan' are): ROADMAP queue 1 item {item}")
     if checkpoint_dir is not None or stop_after is not None:
         raise ValueError("checkpoint_dir / stop_after are engine='async' "
                          "features (the sync checkpointing entry point is "
@@ -338,6 +379,11 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     links = server.links
     steps_by_client = _steps_by_client(clients, sim)
     s_max = int(steps_by_client.max())
+    if engine in ("scan", "pop_scan"):
+        return _run_scan(sim, acfg, rng, clients, parts, fracs_all, links,
+                         server, steps_by_client, s_max, x_train, y_train,
+                         x_test, y_test, failure, straggler, collect_overlap,
+                         per_client_ef=(engine == "pop_scan"))
     if engine == "fused":
         server.init_fused(mlp_loss, sim.lr, collect_overlap=collect_overlap)
     else:
@@ -366,8 +412,10 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
             selected, fr = plan
             staged = None
             if engine == "fused":
+                # padded to the static slot count: the scan engines' shapes
                 batches, mask = _stack_client_batches(
-                    clients, selected, sim, steps_by_client, s_max, rng)
+                    clients, selected, sim, steps_by_client, s_max, rng,
+                    cohort_slots(sim.n_clients, sim.participation))
                 staged = ({"x": torch.as_tensor(batches["x"], device=dev),
                            "y": torch.as_tensor(batches["y"], device=dev,
                                                 dtype=torch.int64)},
@@ -404,7 +452,325 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     result.final_accuracy = (result.accuracies[-1][1]
                              if result.accuracies else 0.0)
     if acfg.strat.needs_residuals and server.residuals is not None:
-        result.final_residuals = server.residuals.cpu().numpy()
+        # the last executed round's live cohort (fused: slots past it pad)
+        live = len(selected)
+        result.final_residuals = server.residuals[:live].cpu().numpy()
     if overlap_hists:
         result.overlap_hist = overlap_hists[0]
+    return result
+
+
+# ------------------------------------------------------- shared round plans
+def _plan_rounds(sim, acfg, rng, clients, parts, fracs_all, links, server,
+                 steps_by_client, s_max, failure, straggler,
+                 collect_overlap) -> list:
+    """Precompute every executed round's plan on the host, consuming the rng
+    exactly as the fused loop does (``plan_cohort``, then each client's
+    batch draw in cohort order: ``fixed_batch_indices`` is the draw that
+    ``fixed_batches`` wraps): cohort -> BCRS schedule -> retained counts ->
+    batch sample indices into the training set, with comm time accounted
+    into ``server.times`` as it goes.
+
+    Returns [(rnd, selected, weights, ks, ks_overlap, idx)]."""
+    n_params, v_bytes = server.n_params, server.v_bytes
+    bs = sim.batch_size
+    plans = []
+    for rnd in range(sim.rounds):
+        plan = plan_cohort(rnd, rng, n_clients=sim.n_clients,
+                           participation=sim.participation,
+                           fracs_all=fracs_all, links=links,
+                           v_bytes=v_bytes, acfg=acfg, failure=failure,
+                           straggler=straggler)
+        if plan is None:
+            continue
+        selected, fr = plan
+        c_r = len(selected)
+        links_sel = [links[i] for i in selected]
+        crs, weights, info = agg_mod.round_schedule(acfg, c_r, fr, links_sel,
+                                                    v_bytes)
+        ks = agg_mod.ks_for_schedule(n_params, crs, acfg)
+        ks_overlap = (agg_mod.overlap_ks(acfg, info, c_r, n_params)
+                      if collect_overlap and rnd == sim.rounds // 2
+                      else None)
+        idx = np.zeros((c_r, s_max * bs), np.int32)
+        for j, c in enumerate(selected):
+            steps = int(steps_by_client[c])
+            local = clients[c].fixed_batch_indices(bs, steps, rng)
+            idx[j, : steps * bs] = parts[c][local]
+        server._account_time(dict(info), links_sel)
+        plans.append((rnd, selected, weights, ks, ks_overlap, idx))
+    return plans
+
+
+def _gather_batches(x_all: torch.Tensor, y_all: torch.Tensor):
+    """``make_batches`` for the scan engines: a plan's [C, S, B] sample
+    indices -> the batches, gathered on the device from the training set
+    held there once."""
+    def gather(p):
+        idx = p["sample_idx"]
+        flat_idx = idx.reshape(-1)
+        return {"x": x_all.index_select(0, flat_idx).view(
+                    *idx.shape, x_all.shape[-1]),
+                "y": y_all.index_select(0, flat_idx).view(idx.shape)}
+    return gather
+
+
+def _snapshot_accuracy(server: FLServer, snap: torch.Tensor, xt, yt) -> float:
+    """Accuracy of an eval snapshot, read from a fresh copy so its leaves
+    sit at the offsets the server's own buffer gives them."""
+    return mlp_accuracy(server._unravel(snap.clone()), xt, yt)
+
+
+# -------------------------------------------------------------- scan engine
+def _run_scan(sim, acfg, rng, clients, parts, fracs_all, links, server,
+              steps_by_client, s_max, x_train, y_train, x_test, y_test,
+              failure, straggler, collect_overlap,
+              per_client_ef: bool = False) -> FLSimResult:
+    """Whole-simulation engine: plan every round on the host (the fused
+    loop's rng stream), stack the schedules and batch sample indices as
+    [R, ...] plan rows, run them through one ``make_sim_scan`` program,
+    then evaluate the eval-round snapshots.
+
+    ``per_client_ef`` switches to the "pop_scan" carry: EF residuals in a
+    dense ``[P + 1, n]`` per-client matrix (row P the padded-slot
+    sentinel, checked to stay zero), slot-gathered and scattered by the
+    cohort ids every round; no reset on cohort resizes."""
+    dev = server.device
+    n_sel = cohort_slots(sim.n_clients, sim.participation)
+    n_params = server.n_params
+    bs = sim.batch_size
+    ef = acfg.strat.needs_residuals
+
+    plans = _plan_rounds(sim, acfg, rng, clients, parts, fracs_all, links,
+                         server, steps_by_client, s_max, failure, straggler,
+                         collect_overlap)
+    result = FLSimResult()
+    if not plans:
+        result.times = server.times
+        return result
+
+    # ------------------------------------------------- stack xs [R, C, ...]
+    r_exec, c_max = len(plans), n_sel
+    xs: Dict[str, np.ndarray] = {
+        "sample_idx": np.zeros((r_exec, c_max, s_max, bs), np.int32),
+        "step_mask": np.zeros((r_exec, c_max, s_max), bool),
+        "active": np.zeros((r_exec, c_max), bool),
+        "weights": np.zeros((r_exec, c_max), np.float32),
+        "ks": np.ones((r_exec, c_max), np.int32),
+    }
+    if ef and not per_client_ef:
+        xs["reset_ef"] = np.zeros((r_exec,), bool)
+    if ef and per_client_ef:
+        # slot -> client id; padded slots point at the sentinel row P
+        xs["cohort"] = np.full((r_exec, c_max), sim.n_clients, np.int32)
+    if collect_overlap:
+        xs["ks_overlap"] = np.ones((r_exec, c_max), np.int32)
+        xs["overlap_round"] = np.zeros((r_exec,), bool)
+    xs["eval_write"], xs["eval_slot"] = _eval_plan(sim,
+                                                   [p[0] for p in plans])
+    n_evals = int(xs["eval_write"].sum())
+    prev_c = None
+    for i, (rnd, selected, weights, ks, ks_overlap, idx) in enumerate(plans):
+        c_r = len(selected)
+        xs["sample_idx"][i, :c_r] = idx.reshape(c_r, s_max, bs)
+        for j, c in enumerate(selected):
+            xs["step_mask"][i, j, : int(steps_by_client[c])] = True
+        xs["active"][i, :c_r] = True
+        xs["weights"][i, :c_r] = weights
+        xs["ks"][i, :c_r] = ks
+        if ef and per_client_ef:
+            xs["cohort"][i, :c_r] = selected
+        elif ef:
+            # the fused server's rule: residuals reset whenever the cohort
+            # size changes between consecutive executed rounds
+            xs["reset_ef"][i] = prev_c is not None and c_r != prev_c
+        if ks_overlap is not None:
+            xs["ks_overlap"][i, :c_r] = ks_overlap
+            xs["overlap_round"][i] = True
+        prev_c = c_r
+
+    # ------------------------------------------------ one program, R rounds
+    x_all = torch.as_tensor(x_train, device=dev)
+    y_all = torch.as_tensor(y_train, device=dev, dtype=torch.int64)
+    sim_fn = engine_mod.make_sim_scan(
+        mlp_loss, server.params, lr=sim.lr, acfg=acfg, eta=server.eta,
+        with_overlap=collect_overlap,
+        make_batches=_gather_batches(x_all, y_all),
+        population=sim.n_clients if per_client_ef else None, device=dev)
+    res_rows = (sim.n_clients + 1) if per_client_ef else c_max
+    residuals0 = torch.zeros((res_rows, n_params) if ef else (0,),
+                             dtype=torch.float32, device=dev)
+    evals0 = torch.zeros((max(n_evals, 1), n_params), dtype=torch.float32,
+                         device=dev)
+    # capture (the reference's compile) is a one-off, outside the timing
+    program = sim_fn.compile(server.flat, residuals0, evals0, xs)
+    synchronize(dev)
+    t_exec0 = time.perf_counter()
+    out = program()
+    synchronize(dev)
+    wall = time.perf_counter() - t_exec0
+
+    # --------------------------------------------------------- host post
+    xt = torch.as_tensor(x_test, device=dev)
+    yt = torch.as_tensor(y_test, device=dev, dtype=torch.int64)
+    for i, (rnd, *_rest) in enumerate(plans):
+        if xs["eval_write"][i]:
+            snap = out["evals"][int(xs["eval_slot"][i])]
+            result.accuracies.append(
+                (rnd, _snapshot_accuracy(server, snap, xt, yt)))
+    result.executed_rounds = [p[0] for p in plans]
+    result.wall_per_round = [wall / r_exec] * r_exec
+    result.losses = out["ys"]["loss"].cpu().tolist()
+    result.times = server.times
+    result.final_accuracy = (result.accuracies[-1][1]
+                             if result.accuracies else 0.0)
+    if ef and per_client_ef:
+        if bool(out["residuals"][sim.n_clients].any()):
+            raise RuntimeError("pop_scan: the sentinel residual row is "
+                               "not zero")
+        result.final_residuals = out["residuals"][: sim.n_clients].cpu() \
+            .numpy()
+    elif ef:
+        server.residuals = out["residuals"][: len(plans[-1][1])]
+        result.final_residuals = server.residuals.cpu().numpy()
+    if collect_overlap:
+        for i, (rnd, selected, *_rest) in enumerate(plans):
+            if rnd == sim.rounds // 2:
+                result.overlap_hist = _overlap_hist(
+                    out["ys"]["overlap_counts"][i].cpu().numpy(),
+                    len(selected))
+    return result
+
+
+# ----------------------------------------------------- traced-sampling scan
+def run_fl_traced(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
+                  p_fail: float = 0.0,
+                  straggler: Optional[StragglerPolicy] = None, *,
+                  device="cuda", init_params=None) -> FLSimResult:
+    """The scan engine with its sampling inside the round: cohort
+    permutation, failure survival, straggler arrival deadlines and batch
+    index draws all come from one ``torch.Generator`` on ``device``
+    (seeded with ``sim.seed``; registered with the captured graph on the
+    card, so each replay draws anew). Its own stream, not ``jax.random``'s
+    and not the host engines', so it is held by what it must do (learn,
+    survive failures and stragglers, one build), not bit for bit.
+
+    The host's per-round work is none: the BCRS schedule is computed once
+    over the full client set (links are round-invariant) and gathered per
+    cohort in the round, coefficients renormalized over the arrivals
+    (``renormalize_coefficients_traced``). Each round's sampled cohort and
+    arrivals come back in ``ys``, so comm time is accounted over exactly
+    the participating clients, as the host engines account theirs."""
+    dev = resolve_device(device)
+    (_rng, clients, parts, fracs_all,
+     (x_train, y_train, x_test, y_test), server) = _setup_sim(
+        sim, acfg, dev, init_params)
+    links = server.links
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sim.seed)
+    fracs_all = np.asarray(fracs_all, np.float64)
+    n_params, v_bytes = server.n_params, server.v_bytes
+    n, bs = sim.n_clients, sim.batch_size
+    steps_by_client = _steps_by_client(clients, sim)
+    s_max = int(steps_by_client.max())
+    n_sel = cohort_slots(n, sim.participation)
+    n_draw = min(over_select(n_sel, straggler) if straggler else n_sel, n)
+
+    # round-invariant per-client tables (links don't change, so the BCRS
+    # schedule over the FULL client set is computable once on the host)
+    crs_all, coeffs_all, info = agg_mod.round_schedule(
+        acfg, n, fracs_all / fracs_all.sum(), links, v_bytes)
+    ks_all = agg_mod.ks_for_schedule(n_params, crs_all, acfg)
+    cr_eff = acfg.strat.wire.cr_eff(acfg.cr, n_params)
+    times_all = np.array([bcrs_mod.comm_time(v_bytes, l, cr_eff)
+                          for l in links], np.float32)
+    lens = np.array([len(ds) for ds in clients], np.int64)
+    table = np.zeros((n, int(lens.max())), np.int32)
+    for c, p in enumerate(parts):
+        table[c, : len(p)] = p
+    smask_all = np.arange(s_max)[None, :] < steps_by_client[:, None]
+
+    def on_dev(a, dtype=None):
+        return torch.as_tensor(a, device=dev, dtype=dtype)
+
+    coeffs_d = on_dev(np.asarray(coeffs_all, np.float32))
+    ks_d, times_d = on_dev(ks_all, torch.int32), on_dev(times_all)
+    lens_d, table_d = on_dev(lens), on_dev(table, torch.int64)
+    smask_d = on_dev(smask_all)
+    inf = torch.full((n_draw,), float("inf"), device=dev)
+    weighted_by_coeffs = acfg.strat.weighting == "bcrs"
+
+    def plan_fn(_row):
+        cohort = torch.rand(n, generator=gen, device=dev).argsort()[:n_draw]
+        active = survivors_traced(gen, n, p_fail).index_select(0, cohort)
+        if straggler is not None:
+            t = torch.where(active, times_d.index_select(0, cohort), inf)
+            active = arrival_mask_traced(t, n_sel, straggler)
+        coeffs = coeffs_d.index_select(0, cohort)
+        if weighted_by_coeffs:
+            w = renormalize_coefficients_traced(coeffs, active)
+        else:
+            w = torch.where(active, coeffs, torch.zeros_like(coeffs))
+            w = w / w.sum().clamp_min(1e-12)
+        lens_c = lens_d.index_select(0, cohort)[:, None]
+        u = torch.rand((n_draw, s_max * bs), generator=gen, device=dev)
+        local = torch.minimum((u * lens_c).to(torch.int64), lens_c - 1)
+        idx = table_d.index_select(0, cohort).gather(1, local)
+        return {"sample_idx": idx.view(n_draw, s_max, bs),
+                "step_mask": smask_d.index_select(0, cohort),
+                "active": active, "weights": w,
+                "ks": ks_d.index_select(0, cohort),
+                # surfaced to the host so comm time is accounted over the
+                # clients that actually participated, like the host engines
+                "ys_extra": {"cohort": cohort, "arrived": active}}
+
+    x_all = on_dev(x_train)
+    y_all = on_dev(y_train, torch.int64)
+    sim_fn = engine_mod.make_sim_scan(
+        mlp_loss, server.params, lr=sim.lr, acfg=acfg, eta=server.eta,
+        make_batches=_gather_batches(x_all, y_all), plan_fn=plan_fn,
+        device=dev, generator=gen)
+    ef = acfg.strat.needs_residuals
+    residuals0 = torch.zeros((n_draw, n_params) if ef else (0,),
+                             dtype=torch.float32, device=dev)
+    eval_write, eval_slot = _eval_plan(sim, range(sim.rounds))
+    evals0 = torch.zeros((max(int(eval_write.sum()), 1), n_params),
+                         dtype=torch.float32, device=dev)
+    program = sim_fn.compile(server.flat, residuals0, evals0,
+                             {"eval_write": eval_write,
+                              "eval_slot": eval_slot})
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = program()
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    result = FLSimResult()
+    cohorts = out["ys"]["cohort"].cpu().numpy()
+    arrived = out["ys"]["arrived"].cpu().numpy()
+    xt = torch.as_tensor(x_test, device=dev)
+    yt = torch.as_tensor(y_test, device=dev, dtype=torch.int64)
+    for rnd in range(sim.rounds):
+        # comm time over the clients that participated; a round whose whole
+        # sampled cohort died contributes nothing, as a skipped host round
+        sel = cohorts[rnd][arrived[rnd]]
+        if sel.size:
+            info_r = {"strategy": acfg.strategy}
+            if "crs" in info:
+                info_r["crs"] = np.asarray(crs_all)[sel]
+            server._account_time(info_r, [links[c] for c in sel])
+            result.executed_rounds.append(rnd)
+        if eval_write[rnd]:
+            snap = out["evals"][int(eval_slot[rnd])]
+            result.accuracies.append(
+                (rnd, _snapshot_accuracy(server, snap, xt, yt)))
+    result.wall_per_round = ([wall / len(result.executed_rounds)]
+                             * len(result.executed_rounds)
+                             if result.executed_rounds else [])
+    result.losses = out["ys"]["loss"].cpu().tolist()
+    result.times = server.times
+    result.final_accuracy = (result.accuracies[-1][1]
+                             if result.accuracies else 0.0)
+    if ef:
+        result.final_residuals = out["residuals"].cpu().numpy()
     return result

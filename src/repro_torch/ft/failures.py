@@ -1,9 +1,11 @@
-"""Failure injection for FL rounds (host part of ``repro.ft.failures``).
+"""Failure injection and elastic cohorts for FL rounds (torch port of
+``repro.ft.failures``).
 
 Node (client) failures during a round surface as missing updates; the server
-aggregates the survivors with renormalized coefficients. Pure numpy, copied
-draw for draw from the reference so seeded failure schedules match. The
-traced (in-program) survivor draw waits for the scan engine's port.
+aggregates the survivors with renormalized coefficients. The host injector
+is pure numpy, copied draw for draw from the reference so seeded failure
+schedules match; ``survivors_traced`` is the in-program draw of
+``simulation.run_fl_traced``, from a ``torch.Generator`` (its own stream).
 """
 from __future__ import annotations
 
@@ -11,6 +13,25 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+
+def survivors_traced(generator: torch.Generator, n_clients: int,
+                     p_fail: float) -> torch.Tensor:
+    """Device twin of ``FailureInjector.survivors`` for the in-program
+    sampling of ``simulation.run_fl_traced``: iid per-round survival draws
+    from ``generator`` (on its device; no host round trip, so a CUDA graph
+    captures it); if the whole cohort would die, one uniformly chosen client
+    is revived — the host injector's never-lose-everyone guarantee.
+    Returns bool [n_clients]."""
+    dev = generator.device
+    alive = torch.rand(n_clients, generator=generator, device=dev) >= p_fail
+    pick = torch.randint(0, n_clients, (1,), generator=generator,
+                         device=dev)
+    revived = torch.zeros(n_clients, dtype=torch.bool, device=dev)
+    revived.index_fill_(0, pick, True)
+    return alive | (~alive.any() & revived)
+
 
 _U64 = (1 << 64) - 1
 
@@ -70,3 +91,17 @@ class FailureInjector:
         if not alive.any():
             alive[0] = True
         return alive
+
+
+@dataclass
+class ElasticPool:
+    """Client pool that can grow/shrink between rounds (elastic scaling).
+    Selection always samples from the currently-registered set."""
+    n_registered: int
+
+    def scale(self, delta: int) -> None:
+        self.n_registered = max(1, self.n_registered + delta)
+
+    def sample(self, frac: float, rng: np.random.Generator) -> np.ndarray:
+        n_sel = max(1, int(round(self.n_registered * frac)))
+        return rng.choice(self.n_registered, size=n_sel, replace=False)

@@ -154,7 +154,7 @@ def block_topk_cuda(x2d: torch.Tensor, k: int):
         err = fn(x2d.data_ptr(), vals.data_ptr(), mask.data_ptr(),
                  x2d.shape[0], x2d.shape[1], int(k), stream)
     build.check(err, "block_topk")
-    block_topk.launches += 1
+    build.count_launch(block_topk)
     return vals, mask
 
 

@@ -8,9 +8,16 @@ The library name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a stale build is never loaded.
 ``build()`` compiles several sources at once, one ``nvcc`` process each,
 all started together.
+
+Each wrapper counts its kernel's launches in ``<wrapper>.launches`` through
+``count_launch``. A CUDA graph capture records a launch without running it:
+inside ``captured_launches()`` such a call is noted for the graph instead,
+and whoever replays the graph adds the noted launches at each replay.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -29,6 +36,9 @@ KERNELS = ("threshold_find", "fused_merge", "overlap_combine", "block_topk",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CAPABILITY = (9, 0)
+#: while ``captured_launches`` is open: the wrappers whose kernel a CUDA
+#: graph capture recorded, one entry per recorded launch
+_captured = None
 
 
 def _nvcc() -> str:
@@ -103,3 +113,29 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+    Under CUDA graph capture nothing launches: the launch is noted for
+    ``captured_launches`` (outside it, it is not counted at all)."""
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is not None:
+            _captured.append(wrapper)
+    else:
+        wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Collect the kernel launches a CUDA graph capture records. Yields a
+    Counter, filled when the block ends: wrapper -> launches of its kernel
+    in one replay of the captured graph."""
+    global _captured
+    per_replay = collections.Counter()
+    outer, _captured = _captured, []
+    try:
+        yield per_replay
+    finally:
+        per_replay.update(_captured)
+        _captured = outer

@@ -64,7 +64,7 @@ def ef_update_cuda(g2d: torch.Tensor, e2d: torch.Tensor, k: int):
         err = fn(g2d.data_ptr(), e2d.data_ptr(), send.data_ptr(),
                  res.data_ptr(), g2d.shape[0], g2d.shape[1], int(k), stream)
     build.check(err, "ef_update")
-    ef_update.launches += 1
+    build.count_launch(ef_update)
     return send, res
 
 

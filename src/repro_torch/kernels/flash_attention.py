@@ -288,7 +288,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  bh, sq, k.shape[1], d, DTYPES[q.dtype], int(bool(causal)),
                  1.0 / (d ** 0.5), stream)
     build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out
 
 
@@ -320,7 +320,7 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                  bh, sq, k.shape[1], d, int(bool(causal)),
                  1.0 / (d ** 0.5), stream)
     build.check(err, "flash_attention_wgmma")
-    flash_attention_wgmma_cuda.launches += 1
+    build.count_launch(flash_attention_wgmma_cuda)
     return out
 
 

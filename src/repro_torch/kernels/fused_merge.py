@@ -147,7 +147,7 @@ def fused_merge_cuda(x: torch.Tensor, thresholds: torch.Tensor,
                  _ptr(active), agg.data_ptr(), _ptr(res), n, c, int(opwa),
                  float(gamma), int(d), float(levels), stream)
     build.check(err, "fused_merge")
-    fused_merge.launches += 1
+    build.count_launch(fused_merge)
     return agg if e is None else (agg, res)
 
 

@@ -72,7 +72,7 @@ def overlap_combine_cuda(vals: torch.Tensor, masks: torch.Tensor,
         err = fn(vals.data_ptr(), masks.data_ptr(), coeffs.data_ptr(),
                  out.data_ptr(), n, k, float(gamma), int(d), stream)
     build.check(err, "overlap_combine")
-    overlap_combine.launches += 1
+    build.count_launch(overlap_combine)
     return out
 
 

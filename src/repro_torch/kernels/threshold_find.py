@@ -134,7 +134,7 @@ def threshold_find_cuda(x: torch.Tensor, ks: torch.Tensor,
                  reads.data_ptr() if reads is not None else None,
                  scratch.data_ptr(), cand.data_ptr(), n, c, stream)
     build.check(err, "threshold_find")
-    threshold_find.launches += 1
+    build.count_launch(threshold_find)
     if log is not None:
         log.append(reads)
     return (th, absmax) if emit_scale else th

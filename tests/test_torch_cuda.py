@@ -5,8 +5,9 @@ path), the present
 ``flash_attention`` kernel within its summation-order bound of its twin
 (plus one bf16 ULP in bf16), the bf16 wgmma kernel within the bound of
 ``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
-wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused and legacy engines) and a short
-reduced-model serve through the kernels' paths.
+wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused, legacy
+and scan engines: scan replays one captured CUDA graph a round, bit-equal to
+fused) and a short reduced-model serve through the kernels' paths.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
 (the kernels are CUDA C++; there is no interpret mode). This file imports
@@ -184,6 +185,33 @@ def test_short_legacy_run_fl_on_the_card(card):
     assert oc.overlap_combine.launches == o0 + 2
     assert all(math.isfinite(a) for _, a in res.accuracies)
     assert all(math.isfinite(v) for v in res.losses)
+
+
+@pytest.mark.parametrize("strategy,block", [("bcrs_opwa", False),
+                                            ("eftopk", False),
+                                            ("bcrs_opwa", True)])
+def test_short_scan_run_fl_on_the_card(card, strategy, block):
+    """The scan engine's replays run the kernels (counted a replay) and
+    give the fused engine's trajectory bit for bit."""
+    from repro_torch.fed import engine
+    from repro_torch.ft import FailureInjector
+    acfg = AggregationConfig(strategy=strategy, block_topk=block)
+    sim = FLSimConfig(rounds=4, dim=32, hidden=32, n_classes=5, eval_every=1)
+    kw = dict(failure=FailureInjector(p_fail=0.3, seed=1))
+    caps = sum(engine.CAPTURE_COUNTS.values())
+    m0 = (oc.overlap_combine if block else fm.fused_merge).launches
+    scan = run_fl(sim, acfg, engine="scan", **kw)
+    assert sum(engine.CAPTURE_COUNTS.values()) == caps + 1
+    rounds = len(scan.executed_rounds)
+    assert (oc.overlap_combine if block else fm.fused_merge).launches == \
+        m0 + rounds + engine.WARMUP
+    fused = run_fl(sim, acfg, engine="fused", **kw)
+    assert scan.executed_rounds == fused.executed_rounds
+    assert scan.accuracies == fused.accuracies
+    assert scan.times.actual == fused.times.actual
+    if fused.final_residuals is not None:
+        assert (scan.final_residuals.view("u4")
+                == fused.final_residuals.view("u4")).all()
 
 
 def _flash_close(got, want, v):

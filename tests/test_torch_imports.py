@@ -1,5 +1,6 @@
 """Import purity of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor anything of the JAX package ``repro``.
+neither ``jax`` nor anything of the JAX package ``repro``, nor ``msgpack``
+(the card's machine has none; the checkpointer carries its own codec).
 
 A fresh interpreter imports every module of the port and ``chip_smoke.py``
 as a module, then reports what ended up in ``sys.modules``; an AST scan of
@@ -48,6 +49,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert "repro_torch.fed.simulation" in loaded
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded if m == "repro" or m.startswith("repro.")]
+    assert not [m for m in loaded if m.split(".")[0] == "msgpack"]
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -64,6 +66,6 @@ def test_no_jax_or_repro_import_statement(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "repro"):
+            if root in ("jax", "jaxlib", "repro", "msgpack"):
                 bad.append(f"{path.name}:{node.lineno}: {name}")
     assert not bad, bad

@@ -286,8 +286,7 @@ class TestRunFL:
                                                  use_kernel=True),
                          device="cpu")
 
-    @pytest.mark.parametrize("engine", ["pop_scan", "scan", "population",
-                                        "async"])
+    @pytest.mark.parametrize("engine", ["population", "async"])
     def test_unported_engines_raise(self, engine):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sim_t.run_fl(sim_t.FLSimConfig(**SMALL, rounds=1),
