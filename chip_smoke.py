@@ -7,8 +7,9 @@
 2. holds ``threshold_find`` and ``fused_merge`` bit for bit against their
    plain PyTorch twins, for every variant, at the main path's shape (C=5,
    n=136,724), the README's priced point (C=32, n=65,536), a real-model leaf
-   (C=8, n=2048*5632, the stablelm-1.6b MLP matrix) and a ragged edge (C=3,
-   n=1001), and ``threshold_find`` on adversarial rows (every k of a row of
+   (C=8, n=2048*5632, the stablelm-1.6b MLP matrix), a ragged edge (C=3,
+   n=1001), the async merge's buffer (C=8) and the population cohort
+   (C=16) at n=136,724, and ``threshold_find`` on adversarial rows (every k of a row of
    ties, all-zero / all-equal / denormal / NaN / +-inf / tied-at-k rows,
    n % 4 != 0, unaligned rows, C = 1 and 32), with its device activities a
    call counted under the profiler; ``block_topk``, ``ef_update`` and
@@ -49,7 +50,20 @@
    round trip of a scan's final model and residuals through the port's
    checkpointer; prints both engines' wall per round and each run's final
    accuracy;
-6. the serve phase (stablelm-1.6b at full width, bf16, random weights from
+6. the population / async phase, at the simulation MLP's full width:
+   ``run_fl(engine="population")`` bit-equal to ``pop_scan`` (P = 10, 40
+   rounds, eftopk and qtopk); ``population.run_population_rounds`` at
+   P = 10^3 and 10^6 (cohort 16, 6 rounds, a bounded store window spilling
+   to a temporary directory; peak state bytes equal across P), and at
+   P = 10^3 against the same call on the plain route; the async
+   sync anchor bit-equal to ``scan`` (bcrs_opwa) and ``pop_scan``
+   (eftopk); a probe of whether a wave member's delta depends on the
+   wave's width; the general async loop at the reference bench's dispatch
+   shape (P = 64, K = 8, M = 32, 10 flushes), batched dispatch bit-equal
+   to sequential, and its chaos case; a crash at half the flushes with the
+   sparse store spilled and a resume bit-equal to the uninterrupted run;
+   ``threshold_find`` and ``fused_merge`` counted once a round or flush;
+7. the serve phase (stablelm-1.6b at full width, bf16, random weights from
    a seed): the present ``flash_attention`` kernel against its twin
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
    equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
@@ -65,9 +79,11 @@
    counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
-7. with ``--profile``, profiles 3 rounds of the fused and of the legacy
-   path and 3 decode steps of the serve path (device time by kernel, idle
-   share), and the row kernels' device time a call at the main shape.
+8. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+   path, of the population engine and 3 flushes of the async engine
+   (eftopk), and 3 decode steps of the serve path (device time by kernel,
+   idle share), and the row kernels' device time a call at the main
+   shape.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -93,6 +109,8 @@ MAIN = (5, 136_724)           # cohort x simulation-MLP parameters
 PRICED = (32, 65_536)
 LEAF = (8, 2048 * 5632)       # stablelm-1.6b MLP matrix as one [C, n] leaf
 RAGGED = (3, 1001)
+ASYNC_BUFFER = (8, MAIN[1])   # the async merge at the bench's K = 8
+POP_COHORT = (16, MAIN[1])    # run_population_rounds' cohort of 16
 STRATEGIES = ("bcrs_opwa", "eftopk", "qtopk", "int4")
 LEGACY_STRATEGIES = ("bcrs_opwa", "bcrs", "eftopk", "qtopk")
 ROUNDS = 5
@@ -1045,6 +1063,325 @@ def scan_phase(kern, zero, record):
     return total
 
 
+# ------------------------------------------------ population / async phase
+#: the reference bench's dispatch shape (``benchmarks/bench_round.py
+#: --async``: P = 64, K = 8, M = 32, 10 flushes, eftopk at cr 0.05, upload
+#: failures p = 0.1) at the simulation MLP's full width
+ASYNC_DISPATCH = dict(rounds=10, n_clients=64, participation=0.125,
+                      batch_size=8, beta=5.0, n_train=2048, n_test=400,
+                      eval_every=2, seed=3, async_buffer_k=8,
+                      async_concurrency=32, async_p_fail_upload=0.1,
+                      async_upload_timeout_s=600.0)
+#: the bench's chaos case: heavy failures, 2 attempts, a tight timeout and
+#: a stall deadline (partial flushes)
+ASYNC_CHAOS = dict(rounds=12, n_clients=20, participation=0.25,
+                   batch_size=16, beta=5.0, n_train=2000, n_test=500,
+                   eval_every=1, seed=3, link_bw_sd_mbps=0.8,
+                   async_p_fail_upload=0.6, async_max_attempts=2,
+                   async_upload_timeout_s=120.0, async_stall_s=20.0)
+POPULATIONS = (10 ** 3, 10 ** 6)
+WAVE_WIDTHS = (1, 2, 4, 8, 16, 32)
+
+
+def wave_width_probe(record):
+    """Does a wave member's delta depend on the wave's width or on its slot?
+    One member's batches at full width, trained in waves of each of
+    ``WAVE_WIDTHS`` (the other rows live members with their own batches),
+    at slot 0 and at the last slot; its delta's bits against the widest
+    wave's. A measurement, not a check: the async engine trains every wave
+    at one static width because of what this shows."""
+    from repro_torch.fed import async_engine as ae
+    from repro_torch.fed.simulation import FLSimConfig, mlp_init, mlp_loss
+    sim = FLSimConfig()
+    params = mlp_init(torch.Generator().manual_seed(0), sim.dim,
+                      sim.n_classes, hidden=sim.hidden, device="cuda")
+    n = sum(v.numel() for v in params.values())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wmax, steps, bs = max(WAVE_WIDTHS), 4, 8
+    xs = torch.randn(wmax, steps, bs, sim.dim, device="cuda", generator=g)
+    ys = torch.randint(0, sim.n_classes, (wmax, steps, bs), device="cuda",
+                       generator=g)
+    ring = 0.05 * torch.randn(1, n, device="cuda", generator=g)
+    train = ae.make_wave_train_step(
+        mlp_loss, params, lr=sim.lr,
+        make_batches=lambda x: {"x": x["x"], "y": x["y"]})
+
+    def member_delta(width, slot):
+        order = [i for i in range(1, wmax)][: width - 1]
+        order.insert(slot, 0)         # member 0 at ``slot``
+        x = {"x": xs[order], "y": ys[order],
+             "step_mask": torch.ones(width, steps, dtype=torch.bool,
+                                     device="cuda"),
+             "ver_idx": torch.zeros(width, dtype=torch.int64,
+                                    device="cuda")}
+        return train(ring, x)[slot]
+
+    ref = member_delta(wmax, 0)
+    out = {}
+    for width in WAVE_WIDTHS:
+        for slot in sorted({0, width - 1}):
+            d = member_delta(width, slot)
+            out[f"width {width} slot {slot}"] = dict(
+                bit_equal=bits_equal(d, ref), max_abs_diff=max_abs(d, ref))
+    record["wave_width_probe"] = out
+    print(f"[async] a member's delta against the {wmax}-wide wave's, slot "
+          f"0: {json.dumps(out)}")
+    return out
+
+
+def plain_route_check(popmod, cfg, acfg, kern, zero):
+    """``run_population_rounds`` at P = 10^3 through the kernels against the
+    same call on the plain route (``use_kernel=False``, same card, no kernel
+    launched). One round: the residual store bit for bit (the EF residuals
+    of both routes are exact; only the merge's client order differs), and
+    the loss. Six rounds: comm time equal, the first loss bit for bit and
+    every loss within 1e-3 relative (the merges' summation order moves the
+    model by rounding from round 2 on). Launches are checked, and left out
+    of the phase's totals: these runs compare the kernels with the plain
+    route."""
+    import dataclasses
+    plain = dataclasses.replace(acfg, use_kernel=False)
+    population = popmod.make_population(POPULATIONS[0], seed=0)
+    one = dataclasses.replace(cfg, rounds=1)
+    runs = {}
+    for label, a, c in (("kernel 1", acfg, one), ("plain 1", plain, one),
+                        ("kernel 6", acfg, cfg), ("plain 6", plain, cfg)):
+        want = ({"threshold_find": c.rounds, "fused_merge": c.rounds}
+                if a.use_kernel is not False else {})
+        runs[label], counts = drive(kern, lambda: popmod.run_population_rounds(
+            population, c, acfg=a, device="cuda"))
+        check_counts(counts, dict(zero, **want),
+                     f"run_population_rounds P={POPULATIONS[0]} {label}")
+    (rk, _, sk), (rp, _, sp) = runs["kernel 1"], runs["plain 1"]
+    rows = np.arange(POPULATIONS[0])
+    same_rows = all(
+        np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        for ids in np.array_split(rows, 10)
+        for a, b in zip(sk.gather(ids), sp.gather(ids)))
+    check(same_rows and rk.losses == rp.losses,
+          "run_population_rounds P=1000, one round: residual store and loss "
+          "bit for bit on the plain route")
+    rk, rp = runs["kernel 6"][0], runs["plain 6"][0]
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(rk.losses, rp.losses))
+    check(rk.comm_actual_s == rp.comm_actual_s
+          and rk.losses[0] == rp.losses[0] and rel <= 1e-3,
+          f"run_population_rounds P=1000, six rounds: comm time, losses "
+          f"(worst relative difference {rel}) against the plain route")
+    max_flat = float(np.abs(rk.final_flat - rp.final_flat).max())
+    print(f"[population] run_population_rounds P=1000 == plain route: one "
+          f"round's store bit for bit; six rounds' losses within {rel:.3e} "
+          f"relative, model within {max_flat:.3e}")
+    return dict(losses_max_rel_diff=rel, final_flat_max_abs_diff=max_flat,
+                plain_s_per_round=rp.wall_per_round)
+
+
+def population_async_phase(kern, zero, record):
+    """The population and async engines at the simulation MLP's full width,
+    launches counted around each run: (a) ``run_fl(engine="population")``
+    bit-equal to ``pop_scan`` (P = 10, 40 rounds, eftopk and qtopk);
+    (b) ``run_population_rounds`` at P = 10^3 and 10^6 (cohort 16, 6
+    rounds, eftopk at cr 0.1, a 16-chunk resident window spilling to a
+    temporary directory), peak state bytes equal across P, and at P = 10^3
+    against the same call on the plain route (no kernel launched): one
+    round's residual store bit for bit, six rounds' comm time equal and
+    losses within 1e-3 relative (the first bit for bit); (c) the async
+    sync anchor bit-equal to ``scan`` (bcrs_opwa) and ``pop_scan``
+    (eftopk); (d) the general loop at the bench's dispatch shape, batched
+    bit-equal to sequential dispatch, and the bench's chaos case; (e) a
+    crash at half the flushes (sparse store spilled) and a resume from the
+    checkpoint, bit-equal to the uninterrupted run. Returns the launches
+    summed over the runs, per kernel."""
+    import tempfile
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.fed import engine as eng
+    from repro_torch.fed import population as popmod
+    from repro_torch.fed.simulation import FLSimConfig, run_fl
+    t_phase = time.perf_counter()
+    sim = FLSimConfig()
+    total = dict(zero)
+    out = {}
+
+    def counted(label, fn, want):
+        res, counts = drive(kern, fn)
+        check_counts(counts, dict(zero, **want), label)
+        for name, v in counts.items():
+            total[name] += v
+        return res
+
+    def merges(n):
+        return {"threshold_find": n, "fused_merge": n}
+
+    def same(a, b, what, residuals=True):
+        check([x for _, x in a.accuracies] == [x for _, x in b.accuracies]
+              and a.executed_rounds == b.executed_rounds
+              and [t.actual for t in a.times.per_round]
+              == [t.actual for t in b.times.per_round],
+              f"{what}: accuracies, comm times, executed rounds")
+        if residuals and b.final_residuals is not None:
+            check(np.array_equal(a.final_residuals.view(np.uint32),
+                                 b.final_residuals.view(np.uint32)),
+                  f"{what}: final residuals bit for bit")
+
+    def walls_ms(res):
+        return [round(t * 1e3, 4) for t in res.wall_per_round]
+
+    # (a) population == pop_scan, P = 10
+    for s in ("eftopk", "qtopk"):
+        acfg = AggregationConfig(strategy=s)
+        pop = counted(f"population {s}", lambda: run_fl(
+            sim, acfg, engine="population", device="cuda"),
+            merges(sim.rounds))
+        ref = counted(f"pop_scan {s}", lambda: run_fl(
+            sim, acfg, engine="pop_scan", device="cuda"),
+            merges(sim.rounds + eng.WARMUP))
+        same(pop, ref, f"population == pop_scan {s}")
+        check(bool(np.isfinite(pop.final_residuals).all())
+              and pop.final_residuals.shape[0] == sim.n_clients
+              and all(math.isfinite(v) for v in pop.losses),
+              f"population {s}: finite [P, n] residuals and losses")
+        out[f"population {s}"] = dict(
+            wall_ms_per_round=walls_ms(pop),
+            pop_scan_wall_ms_per_round=walls_ms(ref)[0],
+            final_accuracy=pop.final_accuracy)
+        print(f"[population] {s}: == pop_scan over {sim.rounds} rounds; "
+              f"wall ms a round {walls_ms(pop)} (pop_scan replay "
+              f"{walls_ms(ref)[0]}), final accuracy {pop.final_accuracy}")
+
+    # (b) the streaming-cohort driver at P = 10^3 and 10^6
+    cfg = popmod.PopulationRunConfig(cohort=16, rounds=6, dim=sim.dim,
+                                     hidden=sim.hidden,
+                                     n_classes=sim.n_classes)
+    acfg = AggregationConfig(strategy="eftopk", cr=0.1)
+    step, peaks = None, {}
+    for p in POPULATIONS:
+        population = popmod.make_population(p, seed=0)
+        with tempfile.TemporaryDirectory() as spill:
+            res, step, store = counted(
+                f"run_population_rounds P={p}",
+                lambda: popmod.run_population_rounds(
+                    population, cfg, acfg=acfg, step=step, chunk_clients=1,
+                    max_resident_chunks=16, spill_dir=spill, device="cuda"),
+                merges(cfg.rounds))
+        check(all(math.isfinite(v) for v in res.losses)
+              and bool(np.isfinite(res.final_flat).all()),
+              f"run_population_rounds P={p}: finite losses and model")
+        check(store.chunk_spills > 0, f"P={p}: the window spilled")
+        peaks[p] = res.peak_state_bytes
+        out[f"run_population_rounds P={p}"] = dict(
+            s_per_round=res.wall_per_round,
+            gather_s=res.gather_seconds, scatter_s=res.scatter_seconds,
+            peak_state_bytes=res.peak_state_bytes,
+            chunk_spills=store.chunk_spills, losses=res.losses)
+        print(f"[population] run_population_rounds P={p}: s a round "
+              f"{res.wall_per_round}, gather {res.gather_seconds:.4f} s, "
+              f"scatter {res.scatter_seconds:.4f} s, peak state "
+              f"{res.peak_state_bytes} bytes, {store.chunk_spills} spills")
+    check(len(set(peaks.values())) == 1,
+          f"peak state bytes flat in P: {peaks}")
+    out["run_population_rounds P=1000 plain route"] = plain_route_check(
+        popmod, cfg, acfg, kern, zero)
+
+    # (c) the async sync anchor == scan / pop_scan
+    anchor = FLSimConfig(async_sync_arrivals=True)
+    for s, ref_engine in (("bcrs_opwa", "scan"), ("eftopk", "pop_scan")):
+        acfg = AggregationConfig(strategy=s)
+        res = counted(f"async anchor {s}", lambda: run_fl(
+            anchor, acfg, engine="async", device="cuda"),
+            merges(sim.rounds))
+        ref = counted(f"{ref_engine} {s}", lambda: run_fl(
+            sim, acfg, engine=ref_engine, device="cuda"),
+            merges(sim.rounds + eng.WARMUP))
+        same(res, ref, f"async anchor == {ref_engine} {s}")
+        out[f"async anchor {s}"] = dict(wall_ms_per_round=walls_ms(res),
+                                        final_accuracy=res.final_accuracy)
+        print(f"[async] sync anchor {s} == {ref_engine} over {sim.rounds} "
+              f"rounds; wall ms a round {walls_ms(res)}")
+
+    # (d) the general loop: a member's bits against its wave's width, then
+    # batched dispatch against sequential at the bench's dispatch shape
+    wave_width_probe(record)
+    acfg = AggregationConfig(strategy="eftopk", cr=0.05)
+    flushes = ASYNC_DISPATCH["rounds"]
+    runs = {}
+    for label, kw in (("batched", {}),
+                      ("sequential", dict(async_batch_dispatch=False))):
+        t0 = time.perf_counter()
+        res = counted(f"async {label}", lambda: run_fl(
+            FLSimConfig(**ASYNC_DISPATCH, **kw), acfg, engine="async",
+            device="cuda"), merges(flushes))
+        wall = time.perf_counter() - t0
+        loop = res.async_loop
+        runs[label] = res
+        out[f"async {label}"] = dict(
+            wall_s=wall, wall_ms_per_flush=walls_ms(res)[0],
+            train_calls=loop.train_calls, train_rows=loop.train_rows,
+            wave_sizes=loop.wave_sizes,
+            wave_buckets_used=sorted(loop.wave_buckets_used),
+            wave_width=loop.wave_width, forced_retires=loop.forced_retires,
+            aborted_untrained=loop.aborted_untrained,
+            peak_round_state_bytes=loop.peak_round_state_bytes,
+            accuracies=res.accuracies)
+        print(f"[async] {label} dispatch: {flushes} flushes, wall ms a "
+              f"flush {walls_ms(res)[0]}, {loop.train_calls} train calls "
+              f"for {loop.train_rows} updates (waves {loop.wave_sizes}, at "
+              f"width {loop.wave_width}), accuracies {res.accuracies}")
+    b, s = runs["batched"], runs["sequential"]
+    same(b, s, "async batched == sequential")
+    check(bits_equal(b.async_loop.flat, s.async_loop.flat)
+          and [(t.actual, t.max, t.min) for t in b.times.per_round]
+          == [(t.actual, t.max, t.min) for t in s.times.per_round],
+          "async batched == sequential: params and virtual times")
+    check(b.async_loop.train_calls < s.async_loop.train_calls,
+          "batched dispatch trains in fewer calls")
+    chaos = counted("async chaos", lambda: run_fl(
+        FLSimConfig(**ASYNC_CHAOS), acfg, engine="async", device="cuda"),
+        merges(ASYNC_CHAOS["rounds"]))
+    durs = [t.actual for t in chaos.times.per_round]
+    check(len(chaos.executed_rounds) == ASYNC_CHAOS["rounds"]
+          and min(durs) >= 0.0, f"async chaos: completes, flush durations "
+          f"{durs}")
+    out["async chaos"] = dict(flush_durations_s=durs,
+                              wall_ms_per_flush=walls_ms(chaos)[0],
+                              accuracies=chaos.accuracies)
+    print(f"[async] chaos: {len(durs)} flushes, virtual durations (s) "
+          f"{[round(d, 3) for d in durs]}")
+
+    # (e) crash at half the flushes and resume, the sparse store spilled
+    with tempfile.TemporaryDirectory() as tmp:
+        spilled = FLSimConfig(**ASYNC_DISPATCH, async_store_chunk=2,
+                              async_store_resident=2,
+                              async_store_spill=os.path.join(tmp, "spill"))
+        full = counted("async uninterrupted", lambda: run_fl(
+            spilled, acfg, engine="async", device="cuda"), merges(flushes))
+        check(full.async_loop.store.chunk_spills > 0,
+              "async: the sparse store spilled")
+        ckpt = os.path.join(tmp, "ckpt")
+        half = flushes // 2
+        counted("async until the crash", lambda: run_fl(
+            spilled, acfg, engine="async", device="cuda",
+            checkpoint_dir=ckpt, checkpoint_every=2, stop_after=half),
+            merges(half))
+        resumed = counted("async resumed", lambda: run_fl(
+            spilled, acfg, engine="async", device="cuda",
+            checkpoint_dir=ckpt, checkpoint_every=2),
+            merges(flushes - half // 2 * 2))
+    same(resumed, full, "async restart == uninterrupted")
+    check(bits_equal(resumed.async_loop.flat, full.async_loop.flat)
+          and resumed.async_loop.proc.counter == full.async_loop.proc.counter,
+          "async restart: params and dispatch counter")
+    out["async restart"] = dict(crash_after=half,
+                                resumed_from=half // 2 * 2)
+    print(f"[async] crash after flush {half}, resumed from flush "
+          f"{half // 2 * 2}: == uninterrupted")
+    record["population_async_phase"] = dict(
+        runs=out, seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    print(f"[population/async phase] {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {record['population_async_phase']['launches']}")
+    return total
+
+
 # ------------------------------------------------------ reference check
 def agg_bound(w, vals, gamma, c):
     """The client-sum reordering bound 2*C*2^-24*gamma*sum_c|w_c v_c|."""
@@ -1709,9 +2046,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 3 rounds of the fused and the legacy "
-                         "path, 3 decode steps of the serve path and the row "
-                         "kernels at the main shape")
+                    help="also profile 3 rounds of the fused, legacy and "
+                         "population paths, 3 async flushes, 3 decode steps "
+                         "of the serve path and the row kernels at the main "
+                         "shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1745,7 +2083,8 @@ def main() -> int:
     print(f"[build] {len(build.KERNELS)} kernels in {record['build_s']:.1f} s")
 
     t0 = time.perf_counter()
-    worst = kernel_parity(tf, fm, (MAIN, PRICED, LEAF, RAGGED), record)
+    worst = kernel_parity(tf, fm, (MAIN, PRICED, LEAF, RAGGED, ASYNC_BUFFER,
+                                   POP_COHORT), record)
     threshold_adversarial(tf, record)
     threshold_launches_per_call(tf, record)
     worst.update(block_parity(modules, record))
@@ -1766,6 +2105,10 @@ def main() -> int:
     scan_launches = scan_phase(kern, {name: 0 for name in kern}, record)
     for name, n in scan_launches.items():
         launches[name] += n
+    pop_launches = population_async_phase(kern, {name: 0 for name in kern},
+                                          record)
+    for name, n in pop_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.core.aggregation import AggregationConfig
         record["profile"] = profile_path(
@@ -1775,6 +2118,11 @@ def main() -> int:
                                         block_topk=True))
         print("[profile]", json.dumps(record["profile"]))
         print("[profile legacy]", json.dumps(record["profile_legacy"]))
+        eftopk = AggregationConfig(strategy="eftopk")
+        for engine in ("population", "async"):
+            record[f"profile_{engine}"] = profile_path(engine, eftopk)
+            print(f"[profile {engine}]",
+                  json.dumps(record[f"profile_{engine}"]))
     flash_worst, wgmma_worst, flash_rows, flash_counts = serve_phase(
         kern, {name: 0 for name in kern}, record, args.profile)
     worst["flash_attention"] = flash_worst
@@ -1804,6 +2152,8 @@ def main() -> int:
                  if name == "threshold_find" else {})
         if name in scan_launches and scan_launches[name]:
             extra["scan_phase_launches"] = scan_launches[name]
+        if pop_launches[name]:
+            extra["population_async_phase_launches"] = pop_launches[name]
         if name in ("block_topk", "ef_update"):
             # the wide path ([8, 32768]) and a longer row ([4, 262144])
             for r in rows:

@@ -115,14 +115,17 @@ def compress_batch_fn(spec: ClientUpdateSpec) -> Callable:
 # ------------------------------------------------------------- flat <-> dict
 def make_unflatten(params_template: Dict[str, torch.Tensor]) -> Callable:
     """[n] flat f32 -> dict shaped like ``params_template``, in sorted-key
-    order (the reference's ravel order). The leaves are views of ``flat``."""
+    order (the reference's ravel order); [C, n] rows -> dict of [C, ...]
+    (the inverse of ``flatten_client_trees``). The leaves are views of
+    ``flat``."""
     specs = [(k, tuple(params_template[k].shape),
               int(params_template[k].numel())) for k in sorted(params_template)]
 
     def unflatten(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         out, off = {}, 0
         for key, shape, size in specs:
-            out[key] = flat[off:off + size].view(shape)
+            out[key] = flat[..., off:off + size].view(*flat.shape[:-1],
+                                                       *shape)
             off += size
         return out
 
@@ -181,14 +184,20 @@ def make_masked_local_trainer(loss_fn: Callable, lr: float):
     loop. The reported loss is the pre-update loss of the last real step
     (per client).
 
-    params: dict of unbatched tensors; batches: dict of [C, S, ...];
-    step_mask: bool [C, S]. Returns (delta dict of [C, ...] = params - final,
-    losses [C]).
+    params: dict of unbatched tensors, shared by the cohort — or, with
+    ``stacked=True``, dict of [C, ...] tensors, each client starting from
+    its own row (the async engine's waves, each member at its own server
+    version); batches: dict of [C, S, ...]; step_mask: bool [C, S]. Returns
+    (delta dict of [C, ...] = params - final, losses [C]). A client's delta
+    is the same either way when its start is the same.
     """
-    def local_train(params, batches, step_mask):
+    def local_train(params, batches, step_mask, stacked: bool = False):
         c, n_steps = step_mask.shape
-        cur = {k: v.detach().unsqueeze(0).expand(c, *v.shape).clone()
-               for k, v in params.items()}
+        if stacked:
+            cur = {k: v.detach().clone() for k, v in params.items()}
+        else:
+            cur = {k: v.detach().unsqueeze(0).expand(c, *v.shape).clone()
+                   for k, v in params.items()}
         last = torch.zeros((c,), dtype=torch.float32,
                            device=step_mask.device)
         for s in range(n_steps):
@@ -204,7 +213,8 @@ def make_masked_local_trainer(loss_fn: Callable, lr: float):
                     cur[key] = torch.where(keep, p - lr * g, p)
                 last = torch.where(m, losses.detach(), last)
         with torch.no_grad():
-            delta = {k: params[k].unsqueeze(0) - cur[k] for k in cur}
+            delta = {k: (params[k] if stacked else params[k].unsqueeze(0))
+                     - cur[k] for k in cur}
         return delta, last
 
     return local_train

@@ -99,9 +99,9 @@ def mlp_accuracy(params, x, y) -> float:
 # ------------------------------------------------------------------- harness
 @dataclass
 class FLSimConfig:
-    """The reference's ``FLSimConfig`` fields that the fused engine reads,
-    with the same defaults (the simulation MLP at its full width: dim 256,
-    hidden 256, 20 classes, 136,724 parameters)."""
+    """The reference's ``FLSimConfig``: the same fields, defaults and order
+    (the simulation MLP at its full width: dim 256, hidden 256, 20 classes,
+    136,724 parameters)."""
     n_clients: int = 10
     participation: float = 0.5        # C
     rounds: int = 40
@@ -120,6 +120,46 @@ class FLSimConfig:
     #: cap every client's local step count at this quantile of the
     #: per-client step distribution (1.0 = off); changes the trajectory
     step_cap_quantile: float = 1.0
+    # ------------------------- engine="async" (FedBuff buffered) knobs ----
+    #: merge buffer size K (0 -> the synchronous cohort size C·N); in async
+    #: mode ``rounds`` counts buffer flushes
+    async_buffer_k: int = 0
+    #: in-flight upload concurrency M (0 -> min(2K, N - K))
+    async_concurrency: int = 0
+    #: staleness-discount exponent: w_i / (1 + s_i)^alpha (0 disables)
+    async_alpha: float = 0.5
+    #: partial-flush stall deadline (virtual seconds after the FIRST
+    #: arrival into an empty buffer; inf = only flush when full)
+    async_stall_s: float = float("inf")
+    #: parity mode: replay the synchronous host round plans through the
+    #: async train/merge programs (zero staleness by construction)
+    async_sync_arrivals: bool = False
+    #: per-attempt mid-transfer upload failure probability; failed attempts
+    #: resume from their byte offset after exponential backoff
+    async_p_fail_upload: float = 0.0
+    async_max_attempts: int = 3
+    async_backoff_s: float = 0.5
+    async_backoff_factor: float = 2.0
+    #: hard deadline per upload (virtual seconds since dispatch)
+    async_upload_timeout_s: float = float("inf")
+    #: batched dispatch: train pending dispatches in waves at flush /
+    #: ring-eviction / checkpoint time, bit-equal to per-upload dispatch
+    #: (False), the sequential baseline
+    async_batch_dispatch: bool = True
+    #: retained-parameter-version ring depth V for wave training (>=
+    #: ``async_engine.min_version_ring``)
+    async_version_ring: int = 8
+    #: the dense [P + 1, n] EF residual store instead of the sparse
+    #: ``population.ClientStateStore`` in the strategy's residual layout
+    async_dense_store: bool = False
+    #: sparse-store chunking: clients per chunk
+    async_store_chunk: int = 256
+    #: sparse-store LRU bound: max resident chunks (0 = unbounded; bounding
+    #: requires ``async_store_spill``)
+    async_store_resident: int = 0
+    #: directory evicted sparse-store chunks spill into ("" = none)
+    async_store_spill: str = ""
+    # ------------------------------------------- link population shape ----
     link_bw_mean_mbps: float = 1.0
     link_bw_sd_mbps: float = 0.2
 
@@ -133,8 +173,11 @@ class FLSimResult:
     wall_per_round: List[float] = field(default_factory=list)
     executed_rounds: List[int] = field(default_factory=list)
     losses: List[float] = field(default_factory=list)
-    #: final EF residuals [C, n] (EF strategies only)
+    #: final EF residuals [C, n] (EF strategies only; [P, n] per client
+    #: for the population engines and the async engine)
     final_residuals: Optional[np.ndarray] = None
+    #: engine="async" only: the finished ``BufferedAsyncLoop``
+    async_loop: Optional[object] = None
 
     def time_to_accuracy(self, target: float) -> Optional[float]:
         """Accumulated actual comm time up to AND INCLUDING the round whose
@@ -216,21 +259,44 @@ def cohort_slots(n_clients: int, participation: float) -> int:
     return max(1, int(round(n_clients * participation)))
 
 
+def _link_columns(links, ids) -> Tuple[np.ndarray, np.ndarray]:
+    """(bandwidth_bps, latency_s) float64 columns for the given client ids:
+    an O(C) slice of a ``cost_model.LinkArrays`` (population scale), or an
+    O(C) comprehension over ``ClientLink`` objects; the same values
+    either way."""
+    if isinstance(links, cost_model.LinkArrays):
+        return links.bandwidth_bps[ids], links.latency_s[ids]
+    return (np.array([links[c].bandwidth_bps for c in ids], np.float64),
+            np.array([links[c].latency_s for c in ids], np.float64))
+
+
 def plan_cohort(rnd: int, rng, *, n_clients: int, participation: float,
                 fracs_all, links, v_bytes, acfg,
                 failure: Optional[FailureInjector] = None,
-                straggler: Optional[StragglerPolicy] = None):
+                straggler: Optional[StragglerPolicy] = None,
+                cohort: Optional[int] = None,
+                sparse_failures: bool = False):
     """One round's cohort: selection -> failure survivors -> straggler
     arrivals -> renormalized data fractions, consuming the host rng in the
     reference's order. Returns (selected, fr) or None when the whole cohort
-    died (the round is skipped)."""
-    n_sel = cohort_slots(n_clients, participation)
+    died (the round is skipped).
+
+    Population scale: ``cohort`` fixes the target size directly (instead of
+    ``round(P * participation)``), and ``sparse_failures=True`` draws
+    survivors per sampled id (``FailureInjector.survivors_at``, O(C)) rather
+    than the dense ``[P]`` vector — its own seeded stream, which revives a
+    cohort member when all die, so the round is never skipped."""
+    n_sel = cohort if cohort is not None \
+        else cohort_slots(n_clients, participation)
     n_draw = over_select(n_sel, straggler) if straggler is not None else n_sel
     n_draw = min(n_draw, n_clients)
     selected = rng.choice(n_clients, n_draw, replace=False)
     if failure is not None:
-        alive = failure.survivors(rnd, n_clients)
-        selected = selected[alive[selected]]
+        if sparse_failures:
+            selected = selected[failure.survivors_at(rnd, selected)]
+        else:
+            alive = failure.survivors(rnd, n_clients)
+            selected = selected[alive[selected]]
         if len(selected) == 0:
             return None
     if straggler is not None and len(selected) > n_sel:
@@ -238,8 +304,7 @@ def plan_cohort(rnd: int, rng, *, n_clients: int, participation: float,
         # priced through the strategy's wire format (comm_time_batch is
         # elementwise bit-identical to the scalar loop)
         cr_eff = acfg.strat.wire.cr_eff(acfg.cr, int(v_bytes // 4))
-        bw = np.array([links[c].bandwidth_bps for c in selected], np.float64)
-        lat = np.array([links[c].latency_s for c in selected], np.float64)
+        bw, lat = _link_columns(links, selected)
         t = bcrs_mod.comm_time_batch(v_bytes, bw, lat, cr_eff)
         chosen, _ = arrivals(t, n_sel, straggler)
         selected = selected[chosen]
@@ -344,12 +409,11 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     per-client local SGD and the per-client compression loop of
     ``FLServer.round``, batches drawn as each client trains, never ahead,
     so the shared rng keeps the reference's order. An unknown engine raises
-    ``ValueError``; the reference's other engines raise
-    ``NotImplementedError`` naming their ROADMAP item. ``checkpoint_dir``,
-    ``checkpoint_every`` and ``stop_after`` belong to the async engine.
+    ``ValueError``.
     ``init_params`` starts from given weights instead of the port's seeded
     init. ``FLSimResult.losses`` holds each round's mean over the cohort of
-    the clients' last local losses.
+    the clients' last local losses (fused, legacy and the scan and
+    population engines).
 
     "scan" plans every round on the host (the fused loop's rng calls, in
     its order) and runs the trajectory as one program
@@ -357,18 +421,25 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
     round, replayed once a round), bit-equal to "fused"; "pop_scan" does the
     same with per-client EF residuals in a dense ``[P + 1, n]`` carry
     (``sim.n_clients`` is the population P), which survive cohort
-    resizes."""
+    resizes. "population" runs the same plans one eager round at a time
+    through ``round_step.make_population_round_step``, its EF residuals in
+    a sparse out-of-core ``population.ClientStateStore``: bit-equal to
+    "pop_scan".
+
+    "async" is the FedBuff-style buffered engine (``fed.async_engine``):
+    ``sim.rounds`` counts buffer flushes, the ``sim.async_*`` knobs shape
+    the buffer and the arrival process, and ``checkpoint_dir`` /
+    ``checkpoint_every`` (flushes) persist its whole state at flush
+    boundaries — a rerun with the same config resumes bit for bit from the
+    newest intact checkpoint. ``stop_after`` stops after that many flushes
+    (a crash at a flush boundary). Every other engine refuses the three."""
     if engine is None:
         engine = "fused" if fused else "legacy"
     if engine not in ("legacy", "fused", "scan", "pop_scan", "population",
                       "async"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine in ("population", "async"):
-        item = {"population": 5, "async": 6}[engine]
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet ('fused', 'legacy', "
-            f"'scan' and 'pop_scan' are): ROADMAP queue 1 item {item}")
-    if checkpoint_dir is not None or stop_after is not None:
+    if engine != "async" and (checkpoint_dir is not None
+                              or stop_after is not None):
         raise ValueError("checkpoint_dir / stop_after are engine='async' "
                          "features (the sync checkpointing entry point is "
                          "launch.fl_train)")
@@ -384,6 +455,26 @@ def run_fl(sim: FLSimConfig, acfg: agg_mod.AggregationConfig,
                          server, steps_by_client, s_max, x_train, y_train,
                          x_test, y_test, failure, straggler, collect_overlap,
                          per_client_ef=(engine == "pop_scan"))
+    if engine == "async":
+        if collect_overlap:
+            raise ValueError("the async engine does not carry the Fig. 4 "
+                             "overlap instrumentation — use engine='scan'")
+        from repro_torch.fed.async_engine import run_async_sim
+        return run_async_sim(sim, acfg, rng, clients, parts, fracs_all,
+                             links, server, steps_by_client, s_max, x_train,
+                             y_train, x_test, y_test, failure, straggler,
+                             checkpoint_dir=checkpoint_dir,
+                             checkpoint_every=checkpoint_every,
+                             stop_after=stop_after)
+    if engine == "population":
+        if collect_overlap:
+            raise ValueError("the population engine does not carry the "
+                             "Fig. 4 overlap instrumentation — use "
+                             "engine='scan' or 'pop_scan'")
+        return _run_population(sim, acfg, rng, clients, parts, fracs_all,
+                               links, server, steps_by_client, s_max,
+                               x_train, y_train, x_test, y_test, failure,
+                               straggler)
     if engine == "fused":
         server.init_fused(mlp_loss, sim.lr, collect_overlap=collect_overlap)
     else:
@@ -639,6 +730,113 @@ def _run_scan(sim, acfg, rng, clients, parts, fracs_all, links, server,
                 result.overlap_hist = _overlap_hist(
                     out["ys"]["overlap_counts"][i].cpu().numpy(),
                     len(selected))
+    return result
+
+
+# -------------------------------------------------------- population engine
+def _slot_plan(n_sel: int, s_max: int, bs: int, selected, weights, ks, idx,
+               steps_by_client) -> Dict[str, np.ndarray]:
+    """One round's plan row padded to the ``n_sel`` static slots — the row
+    ``_run_scan`` stacks for that round (inactive slots: no steps, weight
+    0, k 1)."""
+    c_r = len(selected)
+    x = {"sample_idx": np.zeros((n_sel, s_max, bs), np.int32),
+         "step_mask": np.zeros((n_sel, s_max), bool),
+         "active": np.zeros((n_sel,), bool),
+         "weights": np.zeros((n_sel,), np.float32),
+         "ks": np.ones((n_sel,), np.int32)}
+    x["sample_idx"][:c_r] = idx.reshape(c_r, s_max, bs)
+    for j, c in enumerate(selected):
+        x["step_mask"][j, : int(steps_by_client[c])] = True
+    x["active"][:c_r] = True
+    x["weights"][:c_r] = weights
+    x["ks"][:c_r] = ks
+    return x
+
+
+def _run_population(sim, acfg, rng, clients, parts, fracs_all, links, server,
+                    steps_by_client, s_max, x_train, y_train, x_test, y_test,
+                    failure, straggler) -> FLSimResult:
+    """Streaming-cohort engine over the sparse out-of-core client store:
+    the scan engines' host plan (one rng stream), then one eager round a
+    plan through ``make_population_round_step``, its EF residuals gathered
+    from and scattered back to a ``population.ClientStateStore`` in the
+    strategy's layout. The same slots, plan rows, batch gathers and round
+    body as ``pop_scan``, and a lossless residual codec: bit-equal to it.
+    Round state is O(C x n) on the device and O(P x width) on the host
+    (chunked, spillable), never ``[P, n]`` dense."""
+    from repro_torch.fed import population as pop_mod
+    from repro_torch.fed import round_step as rs_mod
+
+    dev = server.device
+    n_sel = cohort_slots(sim.n_clients, sim.participation)
+    n_params = server.n_params
+    bs = sim.batch_size
+    strat = acfg.strat
+    ef = strat.needs_residuals
+
+    plans = _plan_rounds(sim, acfg, rng, clients, parts, fracs_all, links,
+                         server, steps_by_client, s_max, failure, straggler,
+                         False)
+    result = FLSimResult()
+    if not plans:
+        result.times = server.times
+        return result
+
+    x_all = torch.as_tensor(x_train, device=dev)
+    y_all = torch.as_tensor(y_train, device=dev, dtype=torch.int64)
+    width = 0
+    if ef and strat.residual_layout == "topk_complement":
+        width = pop_mod.residual_width(
+            n_params, min(int(np.min(p[3])) for p in plans))
+    step = rs_mod.make_population_round_step(
+        mlp_loss, server.params, lr=sim.lr, acfg=acfg, eta=server.eta,
+        width=width, make_batches=_gather_batches(x_all, y_all), device=dev)
+    store = None
+    if ef:
+        store = pop_mod.ClientStateStore(
+            sim.n_clients, n_params, layout=strat.residual_layout,
+            width=max(width, 1), chunk_clients=min(256, sim.n_clients))
+
+    res_dev = step.init_residuals(n_sel, n_params)
+    xt = torch.as_tensor(x_test, device=dev)
+    yt = torch.as_tensor(y_test, device=dev, dtype=torch.int64)
+    for rnd, selected, weights, ks, _ks_overlap, idx in plans:
+        t0 = time.perf_counter()
+        c_r = len(selected)
+        x = {k: torch.as_tensor(v, device=dev) for k, v in _slot_plan(
+            n_sel, s_max, bs, selected, weights, ks, idx,
+            steps_by_client).items()}
+        if ef:
+            # the real cohort's rows, zero-padded to the static slots (a
+            # padded slot holds what pop_scan's sentinel row holds)
+            bufs = pop_mod.padded_rows(store.gather(selected), n_sel, dev)
+            res_dev = (tuple(bufs) if step.layout == "topk_complement"
+                       else bufs[0])
+        out = step(server.flat, res_dev, x)
+        if ef:
+            if bool(out["overflow"]):
+                raise RuntimeError(
+                    f"round {rnd}: EF residual outgrew sparse width "
+                    f"{step.width}")
+            new = out["residuals"]
+            new = new if isinstance(new, tuple) else (new,)
+            store.scatter(selected, tuple(a[:c_r].cpu().numpy()
+                                          for a in new))
+        result.losses.append(float(out["loss"]))      # waits for the round
+        result.wall_per_round.append(time.perf_counter() - t0)
+        result.executed_rounds.append(rnd)
+        if _is_eval_round(sim, rnd):
+            result.accuracies.append(
+                (rnd, mlp_accuracy(server.params, xt, yt)))
+
+    result.times = server.times
+    result.final_accuracy = (result.accuracies[-1][1]
+                             if result.accuracies else 0.0)
+    if ef:
+        # the per-client [P, n] matrix (parity with pop_scan); a small-P
+        # engine — the large-P entry point is population.run_population_rounds
+        result.final_residuals = store.dump_dense()
     return result
 
 

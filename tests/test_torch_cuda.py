@@ -7,7 +7,9 @@ path), the present
 ``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
 wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused, legacy
 and scan engines: scan replays one captured CUDA graph a round, bit-equal to
-fused) and a short reduced-model serve through the kernels' paths.
+fused; the population engine bit-equal to pop_scan; the async sync anchor
+bit-equal to scan / pop_scan; async batched dispatch bit-equal to
+sequential) and a short reduced-model serve through the kernels' paths.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
 (the kernels are CUDA C++; there is no interpret mode). This file imports
@@ -212,6 +214,63 @@ def test_short_scan_run_fl_on_the_card(card, strategy, block):
     if fused.final_residuals is not None:
         assert (scan.final_residuals.view("u4")
                 == fused.final_residuals.view("u4")).all()
+
+
+_SMALL_SIM = dict(dim=32, hidden=32, n_classes=5, rounds=4, eval_every=1)
+
+
+def _same_trajectory(a, b):
+    assert a.executed_rounds == b.executed_rounds
+    assert a.accuracies == b.accuracies
+    assert [t.actual for t in a.times.per_round] == \
+        [t.actual for t in b.times.per_round]
+    if b.final_residuals is not None:
+        assert (a.final_residuals.view("u4")
+                == b.final_residuals.view("u4")).all()
+
+
+@pytest.mark.parametrize("strategy", ["eftopk", "qtopk"])
+def test_population_equals_pop_scan_on_the_card(card, strategy):
+    """The population engine's eager rounds run the kernels once a round
+    and give pop_scan's replayed trajectory bit for bit, residuals
+    included."""
+    acfg = AggregationConfig(strategy=strategy)
+    t0 = tf.threshold_find.launches
+    pop = run_fl(FLSimConfig(**_SMALL_SIM), acfg, engine="population")
+    assert tf.threshold_find.launches == t0 + len(pop.executed_rounds)
+    _same_trajectory(pop, run_fl(FLSimConfig(**_SMALL_SIM), acfg,
+                                 engine="pop_scan"))
+
+
+@pytest.mark.parametrize("strategy,ref", [("bcrs_opwa", "scan"),
+                                          ("eftopk", "pop_scan")])
+def test_async_sync_anchor_on_the_card(card, strategy, ref):
+    acfg = AggregationConfig(strategy=strategy)
+    m0 = fm.fused_merge.launches
+    res = run_fl(FLSimConfig(**_SMALL_SIM, async_sync_arrivals=True), acfg,
+                 engine="async")
+    assert fm.fused_merge.launches == m0 + len(res.executed_rounds)
+    _same_trajectory(res, run_fl(FLSimConfig(**_SMALL_SIM), acfg,
+                                 engine=ref))
+
+
+def test_async_batched_equals_sequential_on_the_card(card):
+    """The general loop at the bench's dispatch shape (P = 64, K = 8,
+    M = 32) at a reduced width: every wave at one static width, batched
+    dispatch bit-equal to per-upload dispatch in fewer train calls."""
+    base = dict(rounds=4, n_clients=64, participation=0.125, batch_size=8,
+                beta=5.0, n_train=2048, n_test=400, eval_every=2, seed=3,
+                dim=32, hidden=32, n_classes=5, async_buffer_k=8,
+                async_concurrency=32, async_p_fail_upload=0.1,
+                async_upload_timeout_s=600.0)
+    acfg = AggregationConfig(strategy="eftopk", cr=0.05)
+    b = run_fl(FLSimConfig(**base), acfg, engine="async")
+    s = run_fl(FLSimConfig(**base, async_batch_dispatch=False), acfg,
+               engine="async")
+    _same_trajectory(b, s)
+    assert _same_bits(b.async_loop.flat, s.async_loop.flat)
+    assert b.async_loop.wave_width == s.async_loop.wave_width == 32
+    assert b.async_loop.train_calls < s.async_loop.train_calls
 
 
 def _flash_close(got, want, v):

@@ -287,8 +287,13 @@ class TestRunFL:
                          device="cpu")
 
     @pytest.mark.parametrize("engine", ["population", "async"])
-    def test_unported_engines_raise(self, engine):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sim_t.run_fl(sim_t.FLSimConfig(**SMALL, rounds=1),
-                         agg_t.AggregationConfig(), engine=engine,
-                         device="cpu")
+    def test_every_engine_runs_a_round_on_the_cpu(self, engine):
+        """No engine of ``run_fl`` is left unported: the population and
+        async engines run a round (a flush) on the CPU when asked."""
+        res = sim_t.run_fl(sim_t.FLSimConfig(**SMALL, rounds=1),
+                           agg_t.AggregationConfig(strategy="eftopk"),
+                           engine=engine, device="cpu")
+        assert res.executed_rounds == [0]
+        assert len(res.times.per_round) == 1
+        assert np.isfinite(res.final_residuals).all()
+        assert res.final_residuals.shape[0] == SMALL["n_clients"]
