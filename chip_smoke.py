@@ -63,7 +63,24 @@
    to sequential, and its chaos case; a crash at half the flushes with the
    sparse store spilled and a resume bit-equal to the uninterrupted run;
    ``threshold_find`` and ``fused_merge`` counted once a round or flush;
-7. the serve phase (stablelm-1.6b at full width, bf16, random weights from
+7. the real-model FL phase (stablelm-1.6b at full width: 24 layers,
+   d_model 2048, bf16, 1,644,167,168 parameters in 12 leaves, random
+   weights from a seed): ``threshold_find`` and ``fused_merge`` bit for bit
+   against their twins at the real leaf shapes (C = 8 x n = 276,824,064,
+   the stacked w_up, and n = 205,520,896, the embedding, under OPWA; EF and
+   EF + int8 at C = 4 x w_up; a padded slot in each: C * n up to 2.2e9 >
+   2^31) and timed at the w_up leaf; one client's full-width gradient
+   twice, bit for bit; ``launch.fl_train.run(engine="round")`` at the
+   CLI's defaults (bcrs_opwa, C = 8, 3 rounds) and eftopk at C = 4 (2
+   rounds; its f32 residuals do not fit at C = 8), each kernel launched
+   leaves x rounds, wall per round (first apart), peak memory and the
+   merge's share of a round from CUDA events around each leaf's
+   ``compress_merge_leaf``; one round's deltas from the eftopk state
+   through the kernel and the plain route of ``compress_merge_leaf``
+   (masks, ks, residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16
+   params within one ULP); a restart at ``reduced()`` depth and width
+   (eftopk, 3 rounds then resume to 6) equal to 6 rounds bit for bit;
+8. the serve phase (stablelm-1.6b at full width, bf16, random weights from
    a seed): the present ``flash_attention`` kernel against its twin
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
    equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
@@ -79,11 +96,12 @@
    counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
-8. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+9. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path, of the population engine and 3 flushes of the async engine
-   (eftopk), and 3 decode steps of the serve path (device time by kernel,
-   idle share), and the row kernels' device time a call at the main
-   shape.
+   (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
+   parts: forward, backward, update) and 3 decode steps of the serve path
+   (device time by kernel, idle share), and the row kernels' device time
+   a call at the main shape.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -1382,6 +1400,398 @@ def population_async_phase(kern, zero, record):
     return total
 
 
+# ------------------------------------------------ real-model FL training
+#: stablelm-1.6b's largest leaves, one client's elements: the stacked MLP
+#: matrix (w_up / w_gate, [24, 2048, 5632]) and the embedding / lm_head
+#: ([100352, 2048])
+N_WUP = 24 * 2048 * 5632
+N_EMBED = 100352 * 2048
+#: (label, C, n, EF, codec): the real-model merge's shapes, C * n > 2^31 at
+#: C = 8; the CLI's bcrs_opwa at C = 8 and eftopk at C = 4 (int8 as qtopk)
+BIG_LEAVES = (("w_up opwa", 8, N_WUP, False, "none"),
+              ("embed opwa", 8, N_EMBED, False, "none"),
+              ("w_up ef", 4, N_WUP, True, "none"),
+              ("w_up ef int8", 4, N_WUP, True, "int8"))
+FL_ROUNDS = 3                 # bcrs_opwa, the CLI defaults
+FL_EF_ROUNDS = 2              # eftopk at --clients 4
+
+
+def big_leaf_case(c: int, n: int, seed: int, ef: bool):
+    """One real-model leaf's [C, n] updates (N(0, 1e-3), the scale of a
+    bf16 delta) with the edges: a block of ties, a denormal row, a huge
+    row; the path's k (cr 0.05) for client 0, n for client 1, a random k
+    for the rest, and the last slot padded (inactive, all zero)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 1e-3 * torch.randn(c, n, device="cuda", generator=g)
+    e = 3e-4 * torch.randn(c, n, device="cuda", generator=g) if ef else None
+    x[1, : n // 2] = x[1, 0]
+    x[2] *= 1e-38
+    x[-1] = 0.0
+    if e is not None:
+        e[-1] = 0.0
+    ks = torch.randint(1, n + 1, (c,), device="cuda", generator=g,
+                       dtype=torch.int32)
+    ks[0] = round(0.05 * n)
+    ks[1] = n
+    w = torch.rand(c, device="cuda", generator=g) + 0.1
+    w[-1] = 0.0
+    w = (w / w.sum()).contiguous()
+    active = torch.ones(c, device="cuda")
+    active[-1] = 0.0
+    return x, e, ks, w, active
+
+
+def big_leaf_parity(tf, fm, record):
+    """Both kernels against their twins, bitwise, at the real-model leaf
+    shapes (C * n up to 2.2e9 > 2^31)."""
+    from repro_torch.core.strategies import CODEC_LEVELS, quantization_scale
+    worst = {"threshold_find": 0.0, "fused_merge": 0.0}
+    out = {}
+    for seed, (label, c, n, ef, codec) in enumerate(BIG_LEAVES):
+        x, e, ks, w, active = big_leaf_case(c, n, 100 + seed, ef)
+        th, am = tf.threshold_find(x, ks, e, emit_scale=True)
+        tp, ap = tf.threshold_find_plain(x, ks, e, emit_scale=True)
+        torch.cuda.synchronize()
+        check(torch.equal(th, tp) and bits_equal(am, ap),
+              f"threshold_find {label} C={c} n={n}")
+        del tp, ap
+        sc = (quantization_scale(am, CODEC_LEVELS[codec])
+              if codec != "none" else None)
+        kw = dict(opwa=not ef, gamma=3.0, d=1, codec=codec, scales=sc)
+        got = fm.fused_merge(x, th, w, e, active, **kw)
+        got = got if ef else (got,)
+        want = fm.fused_merge_plain(x, th, w, e, active, **kw)
+        want = want if ef else (want,)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            check(bits_equal(g_, w_), f"fused_merge {label} C={c} n={n}")
+            worst["fused_merge"] = max(worst["fused_merge"], max_abs(g_, w_))
+        out[label] = dict(C=c, n=n, elements=c * n, ef=ef, codec=codec,
+                          ks=ks.tolist(), thresholds=th.tolist())
+        print(f"[fl parity] {label}: C={c} n={n} (C*n={c * n}) "
+              f"threshold_find and fused_merge bitwise equal to their twins")
+        del x, e, got, want, th, am
+        torch.cuda.empty_cache()
+    record["fl_big_leaf_parity"] = out
+    return worst
+
+
+def big_leaf_timings(tf, fm):
+    """Kernel, twin and library times at the w_up leaf as the CLI's round
+    gives it (C = 8, cr 0.05; OPWA, and EF at C = 4), beside the bounds."""
+    rows = []
+    for label, c, ef in (("w_up", 8, False), ("w_up ef", 4, True)):
+        n = N_WUP
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = 1e-3 * torch.randn(c, n, device="cuda", generator=g)
+        e = 3e-4 * torch.randn(c, n, device="cuda", generator=g) if ef \
+            else None
+        ks = torch.full((c,), round(0.05 * n), dtype=torch.int32,
+                        device="cuda")
+        w = torch.full((c,), 1.0 / c, device="cuda")
+        th = tf.threshold_find(x, ks, e)
+        elems = c * n
+        tf_bytes = elems * 4 * (1 + int(ef)) + c * 4 * 2
+        rows.append(timing_row(
+            "threshold_find", label, "ef" if ef else "x only", tf_bytes,
+            elems, time_ms(lambda: tf.threshold_find(x, ks, e), 5),
+            time_ms(lambda: tf.threshold_find_plain(x, ks, e), 2, 1),
+            "torch.kthvalue of the row bit patterns",
+            None if ef else time_ms(lambda: torch.kthvalue(
+                x.abs().view(torch.int32), n - int(ks[0]) + 1, dim=1), 2,
+                1)))
+        fm_bytes = elems * 4 * (1 + 2 * int(ef)) + n * 4 + c * 8
+        rows.append(timing_row(
+            "fused_merge", label, "ef (eftopk)" if ef else "opwa (bcrs_opwa)",
+            fm_bytes, elems * (3 + 2 * int(ef)),
+            time_ms(lambda: fm.fused_merge(x, th, w, e, opwa=not ef,
+                                           gamma=3.0), 5),
+            time_ms(lambda: fm.fused_merge_plain(x, th, w, e, opwa=not ef,
+                                                 gamma=3.0), 2, 1),
+            "none (no single PyTorch call computes it)", None))
+        del x, e, th
+        torch.cuda.empty_cache()
+    return rows
+
+
+def timed_merge(merge_leaf, events):
+    """``compress_merge_leaf`` with a pair of CUDA events recorded around
+    each call into ``events`` (the merge's share of a round)."""
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = merge_leaf(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    return timed
+
+
+def bf16_ulp_close(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Within one bf16 ULP of the larger magnitude, elementwise."""
+    a, b = a.float(), b.float()
+    _, ex = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return bool(((a - b).abs() <= torch.ldexp(torch.ones_like(a),
+                                               ex - 8)).all())
+
+
+def grad_reproducible(model, params, batch):
+    """One client's loss and gradient at full width, twice on the same
+    batch: bit for bit (the one-hot embedding's backward is a matmul)."""
+    from repro_torch.fed import engine as eng
+    items = eng.tree_items(params)
+    outs = []
+    for _ in range(2):
+        live = [p.detach().requires_grad_(True) for _, p in items]
+        loss, _ = model.loss_fn(eng.tree_from_items(
+            zip([k for k, _ in items], live)), batch)
+        grads = torch.autograd.grad(loss, live)
+        outs.append((loss.detach(), [g.detach() for g in grads]))
+        del live, grads
+    (l1, g1), (l2, g2) = outs
+    same = bits_equal(l1, l2) and all(
+        torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                    else a.view(torch.int32),
+                    b.view(torch.int16) if b.dtype == torch.bfloat16
+                    else b.view(torch.int32)) for a, b in zip(g1, g2))
+    check(same, "full-width gradient bit-reproducible run to run")
+    return float(l1)
+
+
+def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
+    """One round's deltas through ``compress_merge_leaf`` by the kernel
+    route and by the plain route, leaf by leaf: masks (the kernel's
+    thresholds against the plain bisection), ks and EF residuals bit for
+    bit; agg within 2*C*2^-24*gamma*sum|w v|; the new bf16 params within
+    one bf16 ULP."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as comp
+    from repro_torch.core import cost_model
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.core.strategies import get as get_strategy
+    from repro_torch.fed import engine as eng
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import Model
+    model = Model(get_config(cfg.arch), device="cuda")
+    rng = np.random.default_rng(cfg.seed)
+    links = cost_model.sample_links(cfg.clients, rng)
+    n_flat = sum(p.numel() for _, p in eng.tree_items(params))
+    plan = fl._build_plan(cfg, rng, np.full(cfg.clients, 1 / cfg.clients),
+                          links, 4.0 * n_flat,
+                          AggregationConfig(strategy=cfg.strategy,
+                                            cr=cfg.cr), None, None)
+    batches = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+               for k, v in fl._round_batches(cfg, model.cfg.vocab_size, 0,
+                                             cfg.c_slots).items()}
+    strat = get_strategy(cfg.strategy)
+    gamma = cfg.gamma if strat.overlap_weighted else 1.0
+    train = eng.make_model_local_trainer(model.loss_fn, cfg.lr)
+    deltas, _ = train(params, batches, torch.from_numpy(plan.step_mask[0]))
+    w = torch.from_numpy(plan.weights[0]).cuda()
+    crs = torch.from_numpy(plan.crs[0]).cuda()
+    active = torch.from_numpy(plan.active[0]).cuda()
+    d_items = eng.tree_items(deltas)
+    r_items = (eng.tree_items(residuals) if strat.needs_residuals
+               else [(k, None) for k, _ in d_items])
+    del deltas
+    worst_agg, worst_ratio, leaves = 0.0, 0.0, 0
+    for i, ((path, p), (_, res)) in enumerate(
+            zip(eng.tree_items(params), r_items)):
+        dl = d_items[i][1]
+        d_items[i] = None
+        c = dl.shape[0]
+        n = dl[0].numel()
+        ks = comp.k_for_ratio_traced(n, crs)
+        # the rule both routes share: round(cr * n) in f32, half to even,
+        # clipped to [1, n]
+        want_ks = np.clip(np.round(plan.crs[0] * np.float32(n)), 1, n)
+        check(np.array_equal(ks.cpu().numpy(), want_ks.astype(np.int32)),
+              f"ks of {path}")
+        u2 = dl.float().reshape(c, -1)
+        r2 = res.reshape(c, -1) if res is not None else None
+        x2 = u2 + r2 if r2 is not None else u2
+        mask_p = comp.topk_compress_dynamic(x2, ks).mask
+        th = kops.topk_thresholds(u2, ks, residuals=r2)
+        mask_k = comp.magnitude_bits(x2) >= th[:, None]
+        check(torch.equal(mask_k, mask_p), f"masks of {path}")
+        del mask_p, th
+        mask_k &= active[:, None]
+        wv = torch.zeros(x2.shape[1], dtype=torch.float64, device="cuda")
+        for ci in range(c):
+            wv += (w[ci].double() * torch.where(
+                mask_k[ci], x2[ci], torch.zeros_like(x2[ci])).double()).abs()
+        del mask_k, u2, x2
+        bound = 2 * c * 2.0 ** -24 * gamma * wv
+        del wv
+        kw = dict(gamma=cfg.gamma, overlap_d=cfg.overlap_d,
+                  opwa=strat.overlap_weighted, residuals=res, active=active,
+                  value_codec=strat.value_codec,
+                  kernel_codec=strat.kernel_codec)
+        agg_k, res_k = eng.compress_merge_leaf(dl, w, ks, use_kernel=True,
+                                               **kw)
+        agg_p, res_p = eng.compress_merge_leaf(dl, w, ks, use_kernel=False,
+                                               **kw)
+        del dl
+        if res is not None:
+            check(bits_equal(res_k, res_p), f"EF residuals of {path}")
+        del res_k, res_p
+        diff = (agg_k.double() - agg_p.double()).abs().reshape(-1)
+        check(bool((diff <= bound).all()), f"agg of {path} within the bound")
+        worst_agg = max(worst_agg, float(diff.max()))
+        worst_ratio = max(worst_ratio, float(
+            (diff / bound.clamp_min(1e-300)).max()))
+        del diff, bound
+        pk = (p.float() - cfg.eta * agg_k).to(p.dtype)
+        pp = (p.float() - cfg.eta * agg_p).to(p.dtype)
+        check(bf16_ulp_close(pk, pp) if p.dtype == torch.bfloat16
+              else float((pk - pp).abs().max()) <= 2.0 ** -22 * float(
+                  pk.abs().max()),
+              f"new params of {path}: kernel and plain route")
+        del agg_k, agg_p, pk, pp
+        torch.cuda.empty_cache()
+        leaves += 1
+    out = dict(strategy=cfg.strategy, clients=cfg.clients, leaves=leaves,
+               max_abs_agg_diff=worst_agg, max_agg_diff_over_bound=worst_ratio)
+    record.setdefault("fl_routes", []).append(out)
+    print(f"[fl routes] {cfg.strategy} C={cfg.clients}: {leaves} leaves, "
+          f"masks, ks and residuals bitwise; agg max |d| {worst_agg:.3g} "
+          f"({worst_ratio:.3g} of its bound); new params within 1 bf16 ULP")
+
+
+def fl_train_phase(kern, zero, record):
+    """Real-model FL training at stablelm-1.6b's full width on the card:
+    (a) ``threshold_find`` and ``fused_merge`` bit for bit against their
+    twins at the real leaf shapes (``BIG_LEAVES``: C * n up to 2.2e9) and
+    timed at the w_up leaf; (b) one client's full-width gradient twice,
+    bit for bit; ``fl_train.run(engine="round")`` at the CLI's defaults
+    (bcrs_opwa, C = 8, 3 rounds), then eftopk at C = 4 for 2 rounds (its
+    f32 residuals do not fit at C = 8), each with the counts reset just
+    before and read just after: finite losses, each kernel launched leaves
+    x rounds, wall per round (first apart), peak memory, the merge's share
+    of a round from CUDA events around each leaf's ``compress_merge_leaf``;
+    (c) after the eftopk run, one round's deltas from its trained state
+    through both routes of ``compress_merge_leaf``
+    (``routes_on_the_same_deltas``); (d) a restart
+    at ``reduced()`` depth and width (eftopk, 3 rounds then resume to 6)
+    equal to 6 rounds bit for bit. Returns (launches per kernel over the
+    two full-width runs, the kernels' worst twin differences, timing
+    rows)."""
+    import gc
+    import tempfile
+    from repro_torch.fed import engine as eng
+    from repro_torch.fed import mesh_round
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import threshold_find as tf
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.models import Model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = big_leaf_parity(tf, fm, record)
+    rows = big_leaf_timings(tf, fm)
+    for row in rows:
+        print("[timing]", json.dumps(row))
+
+    cfg0 = fl.FLTrainConfig(engine="round", device="cuda")
+    model = Model(get_config(cfg0.arch), device="cuda")
+    params = model.init(cfg0.seed)
+    toks = fl._round_batches(cfg0, model.cfg.vocab_size, 0, 1)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[0, 0])).cuda()
+             for k, v in toks.items()}
+    loss0 = grad_reproducible(model, params, batch)
+    leaves = len(eng.tree_items(params))
+    n_params = sum(p.numel() for _, p in eng.tree_items(params))
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[fl] stablelm-1.6b: {n_params} parameters in {leaves} leaves; "
+          f"one client's loss {loss0:.4f}, its gradient bit-reproducible")
+
+    total = dict(zero)
+    runs = {}
+    for label, kw in (("bcrs_opwa C=8", dict(rounds=FL_ROUNDS)),
+                      ("eftopk C=4", dict(rounds=FL_EF_ROUNDS,
+                                          strategy="eftopk", clients=4))):
+        cfg = fl.FLTrainConfig(engine="round", device="cuda", **kw)
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        merge_leaf = mesh_round.compress_merge_leaf
+        mesh_round.compress_merge_leaf = timed_merge(merge_leaf, events)
+        try:
+            res, counts = drive(kern, lambda: fl.run(cfg))
+        finally:
+            mesh_round.compress_merge_leaf = merge_leaf
+        n_rounds = len(res["executed_rounds"])
+        check(n_rounds == cfg.rounds, f"{label}: rounds executed")
+        check(all(math.isfinite(v) for v in res["losses"]),
+              f"{label}: finite losses {res['losses']}")
+        check_counts(counts, dict(zero, threshold_find=leaves * n_rounds,
+                                  fused_merge=leaves * n_rounds), label)
+        for name, n in counts.items():
+            total[name] += n
+        check(len(events) == leaves * n_rounds, f"{label}: merge events")
+        merge_ms = [sum(s.elapsed_time(e) for s, e in
+                        events[r * leaves:(r + 1) * leaves])
+                    for r in range(n_rounds)]
+        wall = res["wall_per_round"]
+        peak = torch.cuda.max_memory_allocated()
+        runs[label] = dict(
+            strategy=cfg.strategy, clients=cfg.clients, rounds=n_rounds,
+            losses=res["losses"], wall_per_round_s=wall,
+            first_round_s=wall[0], later_rounds_s=wall[1:],
+            merge_ms_per_round=merge_ms,
+            merge_share=[m / 1e3 / t for m, t in zip(merge_ms, wall)],
+            peak_memory_bytes=peak, launches=counts)
+        print(f"[fl] {label}: losses {res['losses']} wall per round (s) "
+              f"first {wall[0]:.3f}, then {[round(t, 4) for t in wall[1:]]}"
+              f"; merge {[round(m, 2) for m in merge_ms]} ms a round "
+              f"(share {[round(s, 4) for s in runs[label]['merge_share']]})"
+              f"; peak memory {peak / 1e9:.2f} GB; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        params, residuals = res["params"], res["residuals"]
+        del res, events
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.strategy == "eftopk":
+            # one round's deltas through both routes (EF: masks, ks,
+            # residuals, agg and params all compared)
+            routes_on_the_same_deltas(fl, cfg, params, residuals, record)
+        del params, residuals
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the restart check at reduced depth and width, to keep the checkpoint
+    # bytes small
+    kw = dict(engine="round", device="cuda", reduced=True, strategy="eftopk",
+              fail_prob=0.2, checkpoint_every=2, verbose=False)
+    full = fl.run(fl.FLTrainConfig(rounds=6, **kw))
+    with tempfile.TemporaryDirectory() as tmp:
+        part = fl.run(fl.FLTrainConfig(rounds=3, checkpoint_dir=tmp, **kw))
+        resumed = fl.run(fl.FLTrainConfig(rounds=6, checkpoint_dir=tmp,
+                                          **kw))
+    check(resumed["resumed_from"] == 3
+          and part["executed_rounds"] + resumed["executed_rounds"]
+          == full["executed_rounds"], "fl restart: rounds")
+    for key in ("params", "residuals"):
+        check(all(bits_equal(a.float(), b.float()) for (_, a), (_, b) in zip(
+            eng.tree_items(full[key]), eng.tree_items(resumed[key]))),
+            f"fl restart: {key} bit for bit")
+    check(part["losses"] + resumed["losses"] == full["losses"],
+          "fl restart: losses")
+    print("[fl] restart at reduced() depth and width (2 layers, d_model "
+          "64, eftopk, 3 rounds then resume to 6) == 6 rounds bit for bit")
+    record["fl_train_phase"] = dict(
+        model="stablelm-1.6b", parameters=n_params, leaves=leaves,
+        runs=runs, seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v},
+        restart="reduced() depth and width, bit for bit")
+    print(f"[fl phase] {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{record['fl_train_phase']['launches']}")
+    return total, worst, rows
+
+
 # ------------------------------------------------------ reference check
 def agg_bound(w, vals, gamma, c):
     """The client-sum reordering bound 2*C*2^-24*gamma*sum_c|w_c v_c|."""
@@ -1536,6 +1946,62 @@ def busy_record(wall_ms, by_name):
         else "not measured",
         top_kernels=[dict(name=k[:90], device_ms=v[0], calls=v[1])
                      for k, v in top])
+
+
+def profile_fl_step(record):
+    """One client's local SGD step of ``fl_train`` at stablelm-1.6b's full
+    width (the CLI's batch of 4 x 128 tokens, bf16): after 3 warm-up
+    steps, 3 steps timed in parts (forward, backward, the SGD update; each
+    ending in a synchronize), then one under ``torch.profiler``: device
+    time by kernel, idle share, host time by op and the launches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.models import Model
+    cfg = fl.FLTrainConfig(engine="round", device="cuda")
+    model = Model(get_config(cfg.arch), device="cuda")
+    items = eng.tree_items(model.init(cfg.seed))
+    toks = fl._round_batches(cfg, model.cfg.vocab_size, 0, 1)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[0, 0])).cuda()
+             for k, v in toks.items()}
+    lr = {p.dtype: torch.full((), cfg.lr, dtype=p.dtype, device="cuda")
+          for _, p in items}
+
+    def step():
+        live = [p.detach().clone().requires_grad_(True) for _, p in items]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(eng.tree_from_items(
+            zip([k for k, _ in items], live)), batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            for t, g in zip(live, grads):
+                t.sub_(lr[t.dtype] * g)
+        torch.cuda.synchronize()
+        return [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                (time.perf_counter() - t2) * 1e3]
+
+    for _ in range(3):
+        step()
+    parts = [step() for _ in range(3)]
+    host = {}
+    _, wall, by_name = device_profile(step, host)
+    out = busy_record(wall, by_name)
+    out["forward_backward_sgd_ms"] = parts
+    out["launches_per_step"] = sum(
+        n for name, (_, n) in host.items()
+        if name in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                    "cudaLaunchKernelExC", "cudaMemcpyAsync",
+                    "cudaMemsetAsync"))
+    out["top_host_ops"] = [
+        dict(name=k[:60], host_ms=v[0], calls=v[1]) for k, v in sorted(
+            host.items(), key=lambda kv: -kv[1][0])[:8]]
+    record["profile_fl_step"] = out
+    print("[profile fl step]", json.dumps(out))
 
 
 def profile_path(engine, acfg):
@@ -2047,9 +2513,9 @@ def main() -> int:
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3 rounds of the fused, legacy and "
-                         "population paths, 3 async flushes, 3 decode steps "
-                         "of the serve path and the row kernels at the main "
-                         "shape")
+                         "population paths, 3 async flushes, one full-width "
+                         "fl_train step, 3 decode steps of the serve path "
+                         "and the row kernels at the main shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -2109,6 +2575,13 @@ def main() -> int:
                                           record)
     for name, n in pop_launches.items():
         launches[name] += n
+    fl_launches, fl_worst, fl_rows = fl_train_phase(
+        kern, {name: 0 for name in kern}, record)
+    for name, n in fl_launches.items():
+        launches[name] += n
+    for name, err in fl_worst.items():
+        worst[name] = max(worst[name], err)
+    record["timings"] += fl_rows
     if args.profile:
         from repro_torch.core.aggregation import AggregationConfig
         record["profile"] = profile_path(
@@ -2123,6 +2596,7 @@ def main() -> int:
             record[f"profile_{engine}"] = profile_path(engine, eftopk)
             print(f"[profile {engine}]",
                   json.dumps(record[f"profile_{engine}"]))
+        profile_fl_step(record)
     flash_worst, wgmma_worst, flash_rows, flash_counts = serve_phase(
         kern, {name: 0 for name in kern}, record, args.profile)
     worst["flash_attention"] = flash_worst
@@ -2154,6 +2628,17 @@ def main() -> int:
             extra["scan_phase_launches"] = scan_launches[name]
         if pop_launches[name]:
             extra["population_async_phase_launches"] = pop_launches[name]
+        if fl_launches[name]:
+            extra["fl_train_phase_launches"] = fl_launches[name]
+            # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and
+            # C = 4 under EF
+            for r in fl_rows:
+                if r["kernel"] == name:
+                    tag = "wup_ef" if r["shape"] == "w_up ef" else "wup"
+                    extra.update({f"{tag}_ms": r["ms"],
+                                  f"{tag}_plain_ms": r["plain_ms"],
+                                  f"{tag}_bound_ms": r["bound_ms"],
+                                  f"{tag}_library_ms": r["library_ms"]})
         if name in ("block_topk", "ef_update"):
             # the wide path ([8, 32768]) and a longer row ([4, 262144])
             for r in rows:

@@ -115,22 +115,26 @@ def block_topk_compress(u: torch.Tensor, cr: float, block: int = 8192,
     return Compressed(vals.reshape(-1)[:n], mask.reshape(-1)[:n])
 
 
-def topk_compress_dynamic(u: torch.Tensor, k) -> Compressed:
+def topk_compress_dynamic(u: torch.Tensor, k, n_iters: int = 32
+                          ) -> Compressed:
     """Top-K of each row of ``u`` [..., n] at per-row retained counts ``k``
-    ([...], or a scalar): the reference's 32-halving bisection on the f32
-    bit pattern of |u|. The mask is the exact ``|u| >= k-th largest``
-    selection (ties kept). ``lo``/``hi`` live in int64: ``max + 1``
-    overflows int32 when a row holds a NaN with a full payload."""
-    bits = magnitude_bits(u).to(torch.int64)
+    ([...], or a scalar): the reference's bisection on the f32 bit pattern
+    of |u|, ``n_iters`` halvings (32 pin the exact threshold). The mask is
+    then the exact ``|u| >= k-th largest`` selection (ties kept). ``lo`` and
+    ``hi`` live in int64, since ``max + 1`` overflows int32 when a row holds
+    a NaN with a full payload; the patterns stay int32 (``abs`` clears the
+    sign bit), and every ``mid`` lies below ``hi <= 2^31``, so it compares
+    against them in int32 exactly."""
+    bits = magnitude_bits(u)
     k = torch.as_tensor(k, device=u.device).to(torch.int64)
-    hi = bits.amax(dim=-1) + 1       # invariant: count(bits >= hi) < k
-    lo = torch.zeros_like(hi)        # invariant: count(bits >= lo) >= k
-    for _ in range(32):
+    hi = bits.amax(dim=-1).to(torch.int64) + 1   # count(bits >= hi) < k
+    lo = torch.zeros_like(hi)                    # count(bits >= lo) >= k
+    for _ in range(n_iters):
         mid = lo + ((hi - lo) >> 1)
-        cnt = (bits >= mid.unsqueeze(-1)).sum(dim=-1)
+        cnt = (bits >= mid.to(torch.int32).unsqueeze(-1)).sum(dim=-1)
         pred = cnt >= k
         lo, hi = torch.where(pred, mid, lo), torch.where(pred, hi, mid)
-    mask = bits >= lo.unsqueeze(-1)
+    mask = bits >= lo.to(torch.int32).unsqueeze(-1)
     return Compressed(torch.where(mask, u, torch.zeros_like(u)), mask)
 
 
@@ -197,11 +201,30 @@ def quantize_stochastic(u: torch.Tensor, bits: int,
 
 def ef_compress_batch(residuals: torch.Tensor, updates: torch.Tensor,
                       ks: torch.Tensor,
-                      compress_batch: Callable = topk_compress_batch
+                      compress_batch: Callable = topk_compress_batch,
+                      use_kernel: bool = False
                       ) -> Tuple[Compressed, torch.Tensor]:
     """Batched EF-TopK: ``corrected = residuals + updates`` is compressed,
     ``corrected - sent`` becomes the new residual (the reference's
-    arithmetic, elementwise bit-exact)."""
+    arithmetic, elementwise bit-exact). ``use_kernel=True`` (global Top-K
+    only) finds the thresholds of ``residuals + updates`` through
+    ``threshold_find`` (the Hopper kernel for CUDA tensors, its plain twin
+    for CPU tensors), as ``topk_compress_batch(use_kernel=True)`` does;
+    combining it with another ``compress_batch`` raises, as in the
+    reference, instead of quietly switching the selection."""
+    if use_kernel:
+        if compress_batch is not topk_compress_batch:
+            raise ValueError(
+                "ef_compress_batch(use_kernel=True) implements global Top-K "
+                "selection only — it cannot honor a custom compress_batch "
+                f"({getattr(compress_batch, '__name__', compress_batch)}); "
+                "pass use_kernel=False for block/other compressors")
+        from repro_torch.kernels import ops as kops
+        th = kops.topk_thresholds(updates, ks, residuals=residuals)
+        corrected = residuals + updates
+        mask = magnitude_bits(corrected) >= th[:, None]
+        vals = torch.where(mask, corrected, torch.zeros_like(corrected))
+        return Compressed(vals, mask), corrected - vals
     corrected = residuals + updates
     comp = compress_batch(corrected, ks)
     return comp, corrected - comp.values
@@ -242,3 +265,9 @@ def from_sparse(indices: torch.Tensor, values: torch.Tensor,
     contrib = torch.where(keep, values, torch.zeros_like(values))
     return torch.zeros((n,), dtype=values.dtype,
                        device=values.device).index_add_(0, safe, contrib)
+
+
+COMPRESSORS = {
+    "topk": topk_compress,
+    "blocktopk": block_topk_compress,
+}

@@ -17,7 +17,12 @@ engine (torch port of the flat half of ``repro.fed.engine``).
     of the population client-state store;
   * ``make_sim_scan`` — the whole multi-round simulation: on the card one
     captured CUDA graph of the round, replayed once a round over
-    device-resident plan rows (``SimScan``).
+    device-resident plan rows (``SimScan``);
+  * the per-leaf half for real models: ``make_model_local_trainer`` (local
+    SGD one client at a time into preallocated ``[C, *leaf]`` deltas),
+    ``compress_merge_leaf`` (one leaf's Top-K / EF / codec and merge; on
+    CUDA tensors ``threshold_find`` + ``fused_merge`` on a ``[C, leaf_n]``
+    view) and ``init_mesh_residuals``.
 
 Everything strategy-shaped is read from the capability record; this module
 never matches strategy names.
@@ -588,3 +593,178 @@ def make_sim_scan(loss_fn: Callable, params_template, *, lr: float,
 
     BUILD_COUNTS[(kind, spec.strategy, with_overlap)] += 1
     return SimScan(round_fn, spec, with_overlap, kind, dev, generator)
+
+
+# ------------------------------------------------------- per-leaf (models)
+def tree_items(tree, prefix=()):
+    """Leaves of a nested dict as ``[(path, tensor)]`` in sorted-key order,
+    the order ``jax.tree.flatten`` gives a dict."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def tree_from_items(items):
+    """``[(path, leaf)]`` -> the nested dict they came from."""
+    out: Dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def make_model_local_trainer(loss_fn: Callable, lr: float):
+    """``local_train(params, batches, step_mask) -> (deltas, losses)``: the
+    reference's masked local SGD for a real model, one client at a time.
+
+    params: nested dict of tensors shared by the cohort; batches: dict of
+    [C, S, ...] tensors; step_mask: bool [C, S]. ``loss_fn(params, batch)
+    -> (loss, metrics)`` takes ONE client's batch of one step. Each client
+    trains a copy of the params, ``p <- p - lr * g`` in the param's dtype
+    (``lr`` rounded to that dtype first, as the reference's weakly typed
+    scalar is; bf16 at full width), and its delta ``params - final`` (in
+    the param's dtype) is written into a preallocated ``[C, *leaf]`` buffer,
+    so the cohort costs C deltas and one working copy. Steps with
+    ``step_mask`` False are skipped, exact no-ops; the mask is read on the
+    host once a call. The reported loss is the pre-update loss of a
+    client's last real step (0 for a client with none).
+
+    One client at a time is the reference's wave-composition contract: a
+    client's delta depends on its own params, batches and mask alone, so it
+    is the delta the reference's vmap gives that client. Returns (deltas,
+    nested like params, of [C, *leaf]; losses f32 [C])."""
+    def local_train(params, batches, step_mask):
+        mask = torch.as_tensor(step_mask).cpu().numpy().astype(bool)
+        c, n_steps = mask.shape
+        items = tree_items(params)
+        dev = items[0][1].device
+        steps = {dtype: torch.full((), lr, dtype=dtype, device=dev)
+                 for dtype in {p.dtype for _, p in items}}
+        deltas = [torch.empty((c,) + tuple(p.shape), dtype=p.dtype,
+                              device=p.device) for _, p in items]
+        losses = torch.zeros((c,), dtype=torch.float32, device=dev)
+        for ci in range(c):
+            if not mask[ci].any():
+                for d in deltas:
+                    d[ci].zero_()
+                continue
+            cur = [p.detach().clone() for _, p in items]
+            for s in range(n_steps):
+                if not mask[ci, s]:
+                    continue
+                live = [t.requires_grad_(True) for t in cur]
+                loss, _ = loss_fn(
+                    tree_from_items(zip([k for k, _ in items], live)),
+                    {k: b[ci, s] for k, b in batches.items()})
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+                with torch.no_grad():
+                    for t, g in zip(cur, grads):
+                        if g is not None:      # an unused leaf: g = 0
+                            t.sub_(steps[t.dtype] * g.to(t.dtype))
+                losses[ci] = loss.detach().to(torch.float32)
+            with torch.no_grad():
+                for (_, p), t, d in zip(items, cur, deltas):
+                    torch.sub(p, t, out=d[ci])
+            del cur
+        return (tree_from_items(zip([k for k, _ in items], deltas)),
+                losses)
+
+    return local_train
+
+
+def _merge_leaf_kernels(updates, w, ks, *, gamma, overlap_d, opwa,
+                        residuals, active, kernel_codec):
+    """The kernel route of ``compress_merge_leaf``: the leaf viewed as
+    ``[C, leaf_n]`` f32 through ``kops.megakernel_aggregate``
+    (``threshold_find`` then ``fused_merge``; the twins on CPU tensors)."""
+    from repro_torch.kernels import ops as kops
+    c, shape = updates.shape[0], tuple(updates.shape[1:])
+    u2 = updates.to(torch.float32).reshape(c, -1)
+    r2 = (residuals.to(torch.float32).reshape(c, -1)
+          if residuals is not None else None)
+    agg2, new_res2 = kops.megakernel_aggregate(
+        u2, ks, w, residuals=r2, active=active, opwa=opwa,
+        gamma=float(gamma), d=int(overlap_d), codec=kernel_codec or "none")
+    return (agg2.reshape(shape),
+            new_res2.reshape((c,) + shape) if residuals is not None
+            else None)
+
+
+def compress_merge_leaf(updates: torch.Tensor, coeffs: torch.Tensor,
+                        ks: torch.Tensor, *, gamma: float = 1.0,
+                        overlap_d: int = 1, opwa: bool = True,
+                        use_kernel="auto",
+                        residuals: Optional[torch.Tensor] = None,
+                        active: Optional[torch.Tensor] = None,
+                        value_codec: Optional[Callable] = None,
+                        kernel_codec: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Compress + merge ONE leaf of C clients' updates ``[C, *shape]``.
+
+    Selection is per client over the whole leaf (every non-client axis, as
+    the reference's rank-agnostic bisection), at traced counts ``ks`` [C];
+    ``coeffs`` [C] weigh the merge. ``residuals`` ([C, *shape] f32)
+    switches on error feedback. ``opwa=False`` is the plain weighted merge
+    of the compressed values. ``active`` (bool [C]) gates padded cohort
+    slots out of the merge and the overlap counts; their residuals pass
+    through. ``value_codec`` (a registry ``Strategy.value_codec``) is
+    applied to the survivors before the merge and the residual update;
+    ``kernel_codec`` is its kernel stage.
+
+    ``use_kernel`` ("auto": the kernels for CUDA tensors, the plain path for
+    CPU tensors; True; False): the kernel route views the leaf as
+    ``[C, leaf_n]`` f32 and runs ``threshold_find`` + ``fused_merge``
+    (bit-exact with the plain route: same selection, same EF and codec
+    arithmetic; the merge sums clients in another order). The plain route
+    is the reference's: ``topk_compress_dynamic`` per client, the codec,
+    EF, then ``opwa_aggregate`` or the weighted sum.
+
+    Returns (agg [*shape] f32, new_residuals | None)."""
+    w = coeffs.to(device=updates.device, dtype=torch.float32)
+    if active is not None:
+        w = torch.where(active, w, torch.zeros_like(w))
+    ks = torch.as_tensor(ks, device=updates.device)
+    if ((value_codec is None or kernel_codec is not None)
+            and comp.resolve_use_kernel(use_kernel, updates.device)):
+        return _merge_leaf_kernels(
+            updates, w, ks, gamma=gamma, overlap_d=overlap_d, opwa=opwa,
+            residuals=residuals, active=active, kernel_codec=kernel_codec)
+    c, shape = updates.shape[0], tuple(updates.shape[1:])
+    x = updates.to(torch.float32)
+    if residuals is not None:
+        x = residuals + x
+    vals, mask = comp.topk_compress_dynamic(x.reshape(c, -1), ks)
+    vals, mask = vals.reshape(x.shape), mask.reshape(x.shape)
+    if value_codec is not None:
+        vals = value_codec(vals, mask)
+    new_res = (x - vals) if residuals is not None else None
+    del x       # a full-width leaf's [C, n] f32 copies are GBs each
+    if active is not None:
+        # padded rows are all-zero updates whose tie-at-zero Top-K mask is
+        # all-True: gate them out of the merge and the counts; their
+        # residuals pass through unchanged (vals and mask are this
+        # function's own tensors, gated in place)
+        ax = active.reshape((-1,) + (1,) * len(shape))
+        vals.mul_(ax)
+        mask.logical_and_(ax)
+        if new_res is not None:
+            new_res = torch.where(ax, new_res, residuals.to(torch.float32))
+    if opwa:
+        agg = opwa_mod.opwa_aggregate(vals, mask, w, gamma, overlap_d,
+                                      use_kernel=False)
+    else:
+        agg = opwa_mod.weighted_sum(w, vals)
+    return agg, new_res
+
+
+def init_mesh_residuals(params_template, cohort: int):
+    """Per-leaf EF residuals for the real-model round: one f32
+    ``[cohort, *leaf]`` zero buffer per parameter leaf, nested like the
+    params (the per-leaf twin of the simulation's ``[C, n]`` matrix)."""
+    return tree_from_items(
+        (path, torch.zeros((cohort,) + tuple(p.shape), dtype=torch.float32,
+                           device=p.device))
+        for path, p in tree_items(params_template))

@@ -1,6 +1,6 @@
-"""Core layers of the dense model: norms, MLP, embedding, RoPE.
+"""Core layers of the dense model: norms, MLP, embedding, RoPE, the loss.
 
-Port of what the dense forward and decode need from
+Port of what the dense forward, decode and training need from
 ``repro.models.layers``. Params are plain nested dicts of tensors;
 layer-stacked groups carry a leading ``[L, ...]`` axis that the model walks
 with a Python loop. Initialisers draw from an explicit ``torch.Generator``
@@ -96,6 +96,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup (the reference's single-device ``take``)."""
     return table[tokens]
+
+
+def embed_onehot(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding as the reference's one-hot contraction (its route
+    under mesh rules, ``einsum("...v,vd->...d", one_hot, table)``): the
+    same rows as ``embed_lookup`` (one nonzero term a sum), but its
+    backward is a matmul, which the card runs in the same order every run.
+    The gather's backward accumulates repeated tokens with atomics on CUDA,
+    in an order that may change from run to run. Training uses this one."""
+    vocab = torch.arange(table.shape[0], device=tokens.device,
+                         dtype=tokens.dtype)
+    onehot = (tokens[..., None] == vocab).to(table.dtype)
+    return onehot @ table
+
+
+# ----------------------------------------------------------------------- loss
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_logical: int) -> torch.Tensor:
+    """Mean next-token CE over vocab-padded logits: f32 logits, padded
+    columns masked to -1e9 before the logsumexp, the label logit picked by
+    an iota compare, as the reference computes it."""
+    v_pad = logits.shape[-1]
+    lf = logits.to(torch.float32)
+    cols = torch.arange(v_pad, device=logits.device)
+    if v_pad != vocab_logical:
+        lf = torch.where(cols < vocab_logical, lf, -1e9)
+    lse = torch.logsumexp(lf, dim=-1)
+    onehot = labels[..., None] == cols.to(labels.dtype)
+    label_logit = torch.where(onehot, lf, 0.0).sum(dim=-1)
+    return torch.mean(lse - label_logit)
 
 
 def pad_vocab(vocab: int, multiple: int = 512) -> int:

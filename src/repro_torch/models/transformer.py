@@ -1,4 +1,5 @@
-"""The dense decoder-only model: init, prefill and KV-cache decode.
+"""The dense decoder-only model: init, the training loss, prefill and
+KV-cache decode.
 
 Port of the dense family of ``repro.models.transformer.Model`` (stablelm,
 yi, qwen: MHA or GQA, optional QKV bias). Params are nested dicts whose
@@ -8,7 +9,7 @@ a Python loop (no remat at inference). The KV cache is ``{"k", "v"}`` of
 
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
 in the reference. Other families wait for their ROADMAP item (queue 1,
-item 7b) and raise ``NotImplementedError`` when the model is built.
+item 3) and raise ``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations
 
@@ -19,9 +20,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (_dtype, apply_mlp, dense_init,
-                                       embed_init, embed_lookup, init_mlp,
-                                       pad_vocab, rms_norm)
+from repro_torch.models.layers import (_dtype, apply_mlp, cross_entropy,
+                                       dense_init, embed_init, embed_lookup,
+                                       embed_onehot, init_mlp, pad_vocab,
+                                       rms_norm)
 
 Params = Dict[str, Any]
 
@@ -31,6 +33,18 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack_layers(tree, n: int):
+    """A stacked ``[L, ...]`` params tree -> L per-layer trees, each leaf
+    unbound once (views). Under autograd each stacked leaf then gets one
+    backward that stacks the L layer gradients, where indexing layer by
+    layer (``layer_params``) would give each layer's gradient as a
+    zero-filled full ``[L, ...]`` tensor to be summed L times."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees):
@@ -56,7 +70,7 @@ class Model:
         if what is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet; the port runs the "
-                "dense family (ROADMAP queue 1, item 7b: the moe, mla, "
+                "dense family (ROADMAP queue 1, item 3: the moe, mla, "
                 "hybrid, ssm, encdec and vlm families)")
         self.cfg = cfg
         self.dtype = _dtype(cfg.dtype)
@@ -120,10 +134,29 @@ class Model:
     def _backbone(self, params, x, positions) -> torch.Tensor:
         """Token embeddings -> final hidden states."""
         wins = self._window_flags()
-        for i in range(self.cfg.n_layers):
-            x = self._block_fwd(layer_params(params["layers"], i), x,
-                                positions, None if wins is None else wins[i])
+        layers = unstack_layers(params["layers"], self.cfg.n_layers)
+        for i, p in enumerate(layers):
+            x = self._block_fwd(p, x, positions,
+                                None if wins is None else wins[i])
         return x
+
+    # ================================================================= losses
+    def loss_fn(self, params, batch) -> Tuple[torch.Tensor,
+                                              Dict[str, torch.Tensor]]:
+        """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S])
+        -> ``(loss, {"ce": ce})``, as the reference's dense ``loss_fn``
+        (the MoE aux and MTP terms belong to families not ported yet). The
+        embedding is the one-hot contraction (``layers.embed_onehot``), so
+        the gradient is the same from run to run on the card."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = embed_onehot(params["embed"]["w"], tokens)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        x = self._backbone(params, x, positions)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        ce = cross_entropy(h @ params["lm_head"]["w"], labels,
+                           cfg.vocab_size)
+        return ce, {"ce": ce}
 
     # ================================================================ caches
     def init_cache(self, batch: int, seq: int,

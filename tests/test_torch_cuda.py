@@ -514,3 +514,74 @@ def test_short_reduced_serve_on_the_card(card):
     pf, _ = model.prefill(params, {"tokens": prompt})
     torch.testing.assert_close(pf, res["prompt_logits"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------------------ real-model FL round
+@pytest.mark.parametrize("strategy", ["bcrs_opwa", "eftopk", "qtopk",
+                                      "int4"])
+def test_compress_merge_leaf_kernel_route(card, strategy):
+    """``compress_merge_leaf`` on a 3-d leaf with a padded slot: the kernel
+    route (``threshold_find`` + ``fused_merge``, one launch each) against
+    the plain route on the same CUDA tensors — residuals bit for bit, agg
+    within the client-sum reordering bound."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.strategies import get
+    from repro_torch.fed.engine import compress_merge_leaf
+    strat = get(strategy)
+    g = torch.Generator(device=card).manual_seed(3)
+    c, shape = 5, (3, 70, 41)
+    u = torch.randn((c,) + shape, device=card, generator=g)
+    u[-1] = 0.0
+    res = (0.3 * torch.randn((c,) + shape, device=card, generator=g)
+           if strat.needs_residuals else None)
+    w = torch.rand(c, device=card, generator=g) + 0.1
+    active = torch.ones(c, dtype=torch.bool, device=card)
+    active[-1] = False
+    ks = comp.k_for_ratio_traced(
+        u[0].numel(), torch.tensor([0.05, 0.3, 1.0, 0.01, 0.1],
+                                   device=card))
+    kw = dict(gamma=3.0, opwa=strat.overlap_weighted, residuals=res,
+              active=active, value_codec=strat.value_codec,
+              kernel_codec=strat.kernel_codec)
+    tf.threshold_find.launches = fm.fused_merge.launches = 0
+    agg_k, res_k = compress_merge_leaf(u, w, ks, use_kernel="auto", **kw)
+    assert tf.threshold_find.launches == fm.fused_merge.launches == 1
+    agg_p, res_p = compress_merge_leaf(u, w, ks, use_kernel=False, **kw)
+    assert tf.threshold_find.launches == fm.fused_merge.launches == 1
+    if res is not None:
+        assert torch.equal(res_k.view(torch.int32), res_p.view(torch.int32))
+    x = (u + res) if res is not None else u
+    mask = comp.topk_compress_dynamic(x.reshape(c, -1), ks).mask
+    vals = torch.where(mask, x.reshape(c, -1), 0.0) * active[:, None]
+    gamma = 3.0 if strat.overlap_weighted else 1.0
+    bound = 2 * c * 2.0 ** -24 * gamma * (
+        torch.where(active, w, 0.0)[:, None].double()
+        * vals.double()).abs().sum(0)
+    if strat.value_codec is not None:
+        bound = bound * 2        # the dequantized values are within 2x |x|
+    diff = (agg_k.double() - agg_p.double()).abs().reshape(-1)
+    assert bool((diff <= bound).all())
+
+
+def test_fl_train_round_engine_reduced_on_the_card(card, tmp_path):
+    """``fl_train.run(engine="round")`` at ``reduced()`` size on the card:
+    each kernel launched leaves x rounds, finite losses, and a restart (2
+    rounds, then resume to 4) equal to 4 rounds bit for bit."""
+    from repro_torch.fed.engine import tree_items
+    from repro_torch.launch import fl_train as fl
+    kw = dict(arch="stablelm-1.6b", reduced=True, clients=4, local_steps=2,
+              batch=2, seq=16, strategy="eftopk", engine="round",
+              checkpoint_every=2, device="cuda", verbose=False)
+    tf.threshold_find.launches = fm.fused_merge.launches = 0
+    full = fl.run(fl.FLTrainConfig(rounds=4, **kw))
+    leaves = len(tree_items(full["params"]))
+    assert tf.threshold_find.launches == fm.fused_merge.launches == 4 * leaves
+    assert all(math.isfinite(v) for v in full["losses"])
+    fl.run(fl.FLTrainConfig(rounds=2, checkpoint_dir=str(tmp_path), **kw))
+    resumed = fl.run(fl.FLTrainConfig(rounds=4, checkpoint_dir=str(tmp_path),
+                                      **kw))
+    assert resumed["resumed_from"] == 2
+    for key in ("params", "residuals"):
+        for (_, a), (_, b) in zip(tree_items(full[key]),
+                                  tree_items(resumed[key])):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))

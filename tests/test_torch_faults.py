@@ -1,13 +1,17 @@
-"""Port parity at five places where the port's interface had drifted from the
+"""Port parity at the places where the port's interface had drifted from the
 reference's, each held against the reference computed live in the same
-test (F1 to F5):
+test (F1 to F6):
 
 * F1 ``run_fl`` takes the reference's ``fused`` flag and ``engine=None``,
   and raises ``ValueError`` on an unknown engine;
 * F2 ``opwa_aggregate`` and ``weighted_sum`` take ``[K, *shape]`` leaves;
 * F3 ``ops.block_topk`` returns values in the input's dtype;
 * F4 block Top-K takes rows wider than the register path's 16384;
-* F5 ``opwa_aggregate_traced_k`` defaults to ``use_kernel="auto"``.
+* F5 ``opwa_aggregate_traced_k`` defaults to ``use_kernel="auto"``;
+* F6 the ``fed`` and ``data`` packages export the reference's names that
+  are ported, ``ef_compress_batch`` takes ``use_kernel=`` (and refuses a
+  non-global compressor with it), ``COMPRESSORS`` exists, and
+  ``topk_compress_dynamic`` takes ``n_iters=``.
 
 Tolerances and why: selections, masks and values are bit for bit (both
 sides run the same selection on the same f32 patterns); sums over clients
@@ -179,3 +183,115 @@ def test_f5_traced_k_default_is_auto():
     vals = np.asarray(jax.vmap(comp_j.topk_compress_dynamic)(
         jnp.asarray(u), jnp.asarray(ks)).values)
     _assert_sum_close(got.numpy(), want, w, vals, 5.0)
+
+
+# ---------------------------------------------------------------- F6
+#: the reference's ``repro.fed`` exports that wait for the mesh scan
+#: (ROADMAP queue 1, item 1b)
+FED_NOT_PORTED = {"make_mesh_sim_scan", "MeshSimScan"}
+
+
+def test_f6_fed_package_exports_the_ported_names():
+    import repro.fed as fed_j
+    import repro_torch.fed as fed_t
+    assert set(fed_t.__all__) == set(fed_j.__all__) - FED_NOT_PORTED
+    for name in fed_t.__all__:
+        assert callable(getattr(fed_t, name)), name
+    for name in ("compress_merge_leaf", "init_mesh_residuals",
+                 "make_mesh_round_step", "make_fl_round_step"):
+        assert list(inspect.signature(getattr(fed_t, name)).parameters)[
+            :len(inspect.signature(getattr(fed_j, name)).parameters)] == \
+            list(inspect.signature(getattr(fed_j, name)).parameters), name
+
+
+def test_f6_data_package_exports_match_the_reference():
+    import repro.data as data_j
+    import repro_torch.data as data_t
+    assert set(data_t.__all__) == set(data_j.__all__)
+    toks_j = data_j.synthetic_lm_tokens(6, 17, 50, np.random.default_rng(6))
+    toks_t = data_t.synthetic_lm_tokens(6, 17, 50, np.random.default_rng(6))
+    np.testing.assert_array_equal(toks_t, toks_j)
+    bj, bt = data_j.lm_batch(toks_j), data_t.lm_batch(toks_t)
+    assert set(bj) == set(bt)
+    for k in bj:
+        np.testing.assert_array_equal(bt[k], bj[k])
+        assert bt[k].dtype == bj[k].dtype
+    labels = np.random.default_rng(7).integers(0, 5, 200)
+    parts = data_j.dirichlet_partition(labels, 4, 0.5,
+                                       np.random.default_rng(8))
+    np.testing.assert_array_equal(
+        data_t.client_label_histogram(labels, parts),
+        data_j.client_label_histogram(labels, parts))
+
+
+def test_f6_ef_compress_batch_kernel_route():
+    """``use_kernel=True``: thresholds of ``residuals + updates`` from the
+    kernel (its twin on CPU tensors) against the reference's Pallas kernel
+    in interpret mode and both plain routes — masks, values and residuals
+    bit for bit."""
+    rng = np.random.default_rng(10)
+    c, n = 5, 3333
+    u = rng.normal(size=(c, n)).astype(np.float32)
+    e = (0.3 * rng.normal(size=(c, n))).astype(np.float32)
+    u[1, :500] = u[1, 0]                             # ties
+    ks = np.array([1, 20, 3333, 700, 99], np.int32)
+    outs = [comp_j.ef_compress_batch(jnp.asarray(e), jnp.asarray(u),
+                                     jnp.asarray(ks), use_kernel=uk)
+            for uk in (False, True)]
+    outs += [comp_t.ef_compress_batch(_t(e), _t(u), _t(ks), use_kernel=uk)
+             for uk in (False, True)]
+    want_c, want_r = outs[0]
+    for got_c, got_r in outs[1:]:
+        np.testing.assert_array_equal(np.asarray(got_c.mask),
+                                      np.asarray(want_c.mask))
+        np.testing.assert_array_equal(_bits(np.asarray(got_c.values)),
+                                      _bits(np.asarray(want_c.values)))
+        np.testing.assert_array_equal(_bits(np.asarray(got_r)),
+                                      _bits(np.asarray(want_r)))
+
+
+def test_f6_ef_kernel_route_rejects_custom_compressor():
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=(3, 1024)).astype(np.float32)
+    e = np.zeros_like(u)
+    ks = np.array([10, 20, 30], np.int32)
+    with pytest.raises(ValueError, match="global Top-K"):
+        comp_j.ef_compress_batch(
+            jnp.asarray(e), jnp.asarray(u), jnp.asarray(ks),
+            compress_batch=comp_j.block_topk_compress_batch, use_kernel=True)
+    with pytest.raises(ValueError, match="global Top-K"):
+        comp_t.ef_compress_batch(
+            _t(e), _t(u), _t(ks),
+            compress_batch=comp_t.block_topk_compress_batch, use_kernel=True)
+
+
+@pytest.mark.parametrize("name", ["topk", "blocktopk"])
+def test_f6_compressors_registry(name):
+    assert set(comp_t.COMPRESSORS) == set(comp_j.COMPRESSORS)
+    rng = np.random.default_rng(12)
+    u = rng.normal(size=20_000).astype(np.float32)
+    u[:300] = u[0]                                   # ties
+    kw = {"use_kernel": False} if name == "blocktopk" else {}
+    want = comp_j.COMPRESSORS[name](jnp.asarray(u), 0.05, **kw)
+    got = comp_t.COMPRESSORS[name](_t(u), 0.05, **kw)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    np.testing.assert_array_equal(_bits(got.values.numpy()),
+                                  _bits(np.asarray(want.values)))
+
+
+@pytest.mark.parametrize("n_iters", [1, 4, 9, 16, 31, 32])
+def test_f6_topk_compress_dynamic_n_iters(n_iters):
+    """A bisection cut short keeps the reference's ``lo`` after ``n_iters``
+    halvings: the same (superset) mask, bit for bit."""
+    rng = np.random.default_rng(13)
+    u = rng.normal(size=4097).astype(np.float32)
+    u[:64] = u[0]                                    # ties
+    u[100] = np.float32(np.nan)
+    for k in (1, 64, 1000, 4097):
+        want = comp_j.topk_compress_dynamic(jnp.asarray(u), k,
+                                            n_iters=n_iters)
+        got = comp_t.topk_compress_dynamic(_t(u), k, n_iters=n_iters)
+        np.testing.assert_array_equal(got.mask.numpy(),
+                                      np.asarray(want.mask))
+        np.testing.assert_array_equal(_bits(got.values.numpy()),
+                                      _bits(np.asarray(want.values)))
