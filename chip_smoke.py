@@ -64,22 +64,33 @@
    sparse store spilled and a resume bit-equal to the uninterrupted run;
    ``threshold_find`` and ``fused_merge`` counted once a round or flush;
 7. the real-model FL phase (stablelm-1.6b at full width: 24 layers,
-   d_model 2048, bf16, 1,644,167,168 parameters in 12 leaves, random
+   d_model 2048, bf16, 1,644,267,520 parameters in 12 leaves, random
    weights from a seed): ``threshold_find`` and ``fused_merge`` bit for bit
    against their twins at the real leaf shapes (C = 8 x n = 276,824,064,
    the stacked w_up, and n = 205,520,896, the embedding, under OPWA; EF and
    EF + int8 at C = 4 x w_up; a padded slot in each: C * n up to 2.2e9 >
    2^31) and timed at the w_up leaf; one client's full-width gradient
    twice, bit for bit; ``launch.fl_train.run(engine="round")`` at the
-   CLI's defaults (bcrs_opwa, C = 8, 3 rounds) and eftopk at C = 4 (2
-   rounds; its f32 residuals do not fit at C = 8), each kernel launched
-   leaves x rounds, wall per round (first apart), peak memory and the
-   merge's share of a round from CUDA events around each leaf's
-   ``compress_merge_leaf``; one round's deltas from the eftopk state
-   through the kernel and the plain route of ``compress_merge_leaf``
-   (masks, ks, residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16
-   params within one ULP); a restart at ``reduced()`` depth and width
-   (eftopk, 3 rounds then resume to 6) equal to 6 rounds bit for bit;
+   CLI's defaults (bcrs_opwa, C = 8, 4 rounds), eftopk at C = 4 (4
+   rounds; its f32 residuals do not fit at C = 8) and bcrs_opwa at C = 8
+   with ``fail_prob`` 0.3 (masked slots), each kernel launched leaves x
+   rounds, wall per round (first apart), peak memory and the merge's
+   share of a round from CUDA events around each leaf's
+   ``compress_merge_leaf``; then each of the three again through
+   ``fl_train.run(engine="scan")``: one CUDA graph capture a run, each
+   kernel launched 12 times a replay, params, EF residuals and losses
+   bit for bit equal to the round engine's, the eager round, the replay
+   wall a round, the capture's seconds and peak memory; two replays under
+   the profiler (device idle share) and the device time the fail run's
+   masked slots cost; one round's deltas from the eftopk state through
+   the kernel and the plain route of ``compress_merge_leaf`` (masks, ks,
+   residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16 params
+   within one ULP); ``fl_train --population`` (bcrs_opwa, P = 10,000,
+   cohort 8, 3 rounds) and ``--engine async`` (bcrs_opwa, K = M = 2, a
+   version ring of 2, 3 flushes) at full width, launches counted; restarts
+   at ``reduced()`` depth and width equal to uninterrupted runs bit for
+   bit: the round engine (eftopk, 3 rounds then resume to 6), population
+   and async (eftopk over a sparse client store, the store included);
 8. the serve phase (stablelm-1.6b at full width, bf16, random weights from
    a seed): the present ``flash_attention`` kernel against its twin
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
@@ -1412,8 +1423,16 @@ BIG_LEAVES = (("w_up opwa", 8, N_WUP, False, "none"),
               ("embed opwa", 8, N_EMBED, False, "none"),
               ("w_up ef", 4, N_WUP, True, "none"),
               ("w_up ef int8", 4, N_WUP, True, "int8"))
-FL_ROUNDS = 3                 # bcrs_opwa, the CLI defaults
-FL_EF_ROUNDS = 2              # eftopk at --clients 4
+FL_ROUNDS = 4                 # bcrs_opwa, the CLI defaults; the scan's
+FL_EF_ROUNDS = 4              # eager round + 3 replays; eftopk at C = 4
+FL_FAIL = 0.3                 # the run whose rounds hold masked slots
+#: fl_train --population at full width: P registered clients, cohort 8
+FL_POPULATION = 10_000
+FL_POP_ROUNDS = 3
+#: fl_train --engine async at full width: K = M = 4 with a ring of 2 was
+#: reckoned above 70 GB (PERF.md), so K and M are halved
+FL_ASYNC = dict(rounds=3, async_buffer_k=2, async_concurrency=2,
+                async_version_ring=2)
 
 
 def big_leaf_case(c: int, n: int, seed: int, ef: bool):
@@ -1659,24 +1678,270 @@ def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
           f"({worst_ratio:.3g} of its bound); new params within 1 bf16 ULP")
 
 
+def host_copy(tree):
+    """A (nested) dict of device tensors -> the same on the host."""
+    from repro_torch.fed import engine as eng
+    return eng.tree_from_items((k, v.cpu()) for k, v in eng.tree_items(tree))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, any float dtype (both on the host)."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(view[a.dtype]),
+                                              b.view(view[b.dtype]))
+
+
+def trees_same_bits(dev_tree, host_tree) -> bool:
+    """A device tree against a host copy, leaf by leaf (one leaf on the
+    host at a time)."""
+    from repro_torch.fed import engine as eng
+    return all(same_bits(a.cpu(), b) for (_, a), (_, b) in zip(
+        eng.tree_items(dev_tree), eng.tree_items(host_tree)))
+
+
+def masked_slots(fl, cfg, n_flat):
+    """The plan's inactive (slot, round) pairs per executed round, from the
+    same host plan ``fl_train.run`` builds."""
+    from repro_torch.core import cost_model
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.ft import FailureInjector, StragglerPolicy
+    rng = np.random.default_rng(cfg.seed)
+    links = cost_model.sample_links(cfg.clients, rng)
+    plan = fl._build_plan(
+        cfg, rng, np.full(cfg.clients, 1 / cfg.clients), links,
+        4.0 * n_flat, AggregationConfig(strategy=cfg.strategy, cr=cfg.cr),
+        FailureInjector(p_fail=cfg.fail_prob, seed=cfg.seed)
+        if cfg.fail_prob > 0 else None,
+        StragglerPolicy(over_selection=cfg.over_selection)
+        if cfg.over_selection > 0 else None)
+    return [int((~a).sum()) for a in plan.active]
+
+
+def scan_against_round(kern, zero, fl, cfg, ref, leaves, n_params, label):
+    """``fl_train.run(engine="scan")`` on ``cfg`` against the round
+    engine's run of it (``ref``: losses, and params / residuals as host
+    copies), with the counts reset just before and read just after: one
+    capture, each kernel launched ``leaves`` times a replay and
+    ``leaves`` x rounds in all (the eager first round's included),
+    params, residuals and losses bit for bit; replay wall a round, eager
+    round, capture seconds and peak memory."""
+    import dataclasses
+    import gc
+    from repro_torch.fed import engine as eng
+    scfg = dataclasses.replace(cfg, engine="scan")
+    key = ("mesh_scan", cfg.strategy)
+    before = eng.TRACE_COUNTS[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, counts = drive(kern, lambda: fl.run(scfg))
+    peak = torch.cuda.max_memory_allocated()
+    n = len(res["executed_rounds"])
+    st = res["scan"]
+    check(n == cfg.rounds and res["chunk_rounds"] == [n],
+          f"scan {label}: rounds executed in one chunk")
+    check(eng.TRACE_COUNTS[key] - before == 1,
+          f"scan {label}: one capture a run")
+    check(st["launches_per_replay"] == {"threshold_find": leaves,
+                                        "fused_merge": leaves},
+          f"scan {label}: launches a replay {st['launches_per_replay']}")
+    check_counts(counts, dict(zero, threshold_find=leaves * n,
+                              fused_merge=leaves * n), f"scan {label}")
+    check(res["executed_rounds"] == ref["executed_rounds"]
+          and res["losses"] == ref["losses"],
+          f"scan {label}: losses bit for bit {res['losses']} vs "
+          f"{ref['losses']}")
+    check(trees_same_bits(res["params"], ref["params"]),
+          f"scan {label}: params bit for bit")
+    if ref["residuals"] is not None:
+        check(trees_same_bits(res["residuals"], ref["residuals"]),
+              f"scan {label}: EF residuals bit for bit")
+    chunk_s = res["wall_per_round"][0] * n
+    replay_s = (chunk_s - st["eager_round_s"]) / (n - 1)
+    out = dict(strategy=cfg.strategy, clients=cfg.clients,
+               fail_prob=cfg.fail_prob, rounds=n, parameters=n_params,
+               losses=res["losses"], eager_round_s=st["eager_round_s"],
+               replay_s_per_round=replay_s, capture_s=st["capture_s"],
+               wall_per_round_s=res["wall_per_round"][0],
+               peak_memory_bytes=peak, launches=counts,
+               launches_per_replay=st["launches_per_replay"],
+               bitwise_vs_round_engine=["params", "losses"]
+               + (["residuals"] if ref["residuals"] is not None else []))
+    print(f"[fl scan] {label}: {n} rounds == the round engine bit for bit "
+          f"({', '.join(out['bitwise_vs_round_engine'])}); eager round "
+          f"{st['eager_round_s']:.3f} s, replay {replay_s:.4f} s a round, "
+          f"capture {st['capture_s']:.2f} s; peak {peak / 1e9:.2f} GB; "
+          f"launches {counts['threshold_find']} + {counts['fused_merge']}"
+          f" (a replay {st['launches_per_replay']})")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def profile_scan_replay(fl, cfg, record):
+    """Two replays of the full-width scan round (bcrs_opwa, C = 8, the
+    plan's rounds 0 and 1) under ``torch.profiler``, after its eager round
+    and capture: device time by kernel and the idle share."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost_model
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.fed import engine as eng
+    from repro_torch.models import Model
+    model = Model(get_config(cfg.arch), device="cuda")
+    params = model.init(cfg.seed)
+    n_flat = sum(p.numel() for _, p in eng.tree_items(params))
+    rng = np.random.default_rng(cfg.seed)
+    links = cost_model.sample_links(cfg.clients, rng)
+    plan = fl._build_plan(cfg, rng, np.full(cfg.clients, 1 / cfg.clients),
+                          links, 4.0 * n_flat,
+                          AggregationConfig(strategy=cfg.strategy,
+                                            cr=cfg.cr), None, None)
+    idx = [0, 1]
+    xs = {"batches": fl._stack_batches(cfg, model.cfg.vocab_size, idx,
+                                       cfg.c_slots),
+          "step_mask": plan.step_mask[idx], "active": plan.active[idx],
+          "weights": plan.weights[idx], "crs": plan.crs[idx]}
+    sim = eng.make_mesh_sim_scan(model.loss_fn, params, lr=cfg.lr,
+                                 strategy=cfg.strategy, eta=cfg.eta,
+                                 gamma=cfg.gamma, overlap_d=cfg.overlap_d)
+    program = sim.compile(params, torch.zeros((0,), device="cuda"), xs)
+    program()                     # the eager round, the capture, a replay
+    torch.cuda.synchronize()
+    _, wall, by_name = device_profile(program)        # two replays
+    out = busy_record(wall, by_name)
+    out.update(replays=2, wall_ms_per_replay=wall / 2,
+               device_busy_ms_per_replay=(
+                   sum(ms for ms, _ in by_name.values()) / 2 if by_name
+                   else "not measured"))
+    record["profile_fl_scan_replay"] = out
+    print("[profile fl scan replay]", json.dumps(out))
+    del program, sim, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fl_engines_at_full_width(kern, zero, fl, leaves, record):
+    """``fl_train --population`` (bcrs_opwa, P = 10,000, cohort 8, no
+    store) and ``--engine async`` (bcrs_opwa, ``FL_ASYNC``) at full width,
+    each with the counts reset just before and read just after: finite
+    losses / params, launches (leaves x rounds; one of each kernel a
+    flush), wall, peak memory."""
+    import gc
+    from repro_torch.fed import engine as eng
+    out, total = {}, dict(zero)
+    for label, kw, want in (
+            ("population", dict(population=FL_POPULATION, cohort=8,
+                                rounds=FL_POP_ROUNDS),
+             leaves * FL_POP_ROUNDS),
+            ("async", dict(engine="async", **FL_ASYNC), FL_ASYNC["rounds"])):
+        cfg = fl.FLTrainConfig(device="cuda", **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, counts = drive(kern, lambda: fl.run(cfg))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(len(res["executed_rounds"]) == kw["rounds"],
+              f"fl {label}: rounds / flushes executed")
+        check(all(math.isfinite(v) for v in res["losses"]),
+              f"fl {label}: finite losses")
+        check(all(bool(torch.isfinite(p).all())
+                  for _, p in eng.tree_items(res["params"])),
+              f"fl {label}: finite params")
+        check_counts(counts, dict(zero, threshold_find=want,
+                                  fused_merge=want), f"fl {label}")
+        for name, n in counts.items():
+            total[name] += n
+        rec = dict(config={k: v for k, v in kw.items()},
+                   strategy=cfg.strategy, losses=res["losses"],
+                   wall_per_round_s=res["wall_per_round"],
+                   run_wall_s=wall, peak_memory_bytes=peak, launches=counts)
+        if label == "async":
+            loop = res["async_loop"]
+            rec.update(train_calls=loop.train_calls,
+                       client_updates=loop.train_rows,
+                       wave_sizes=loop.wave_sizes,
+                       forced_retires=loop.forced_retires,
+                       peak_round_state_bytes=loop.peak_round_state_bytes)
+        out[label] = rec
+        print(f"[fl {label}] full width: {json.dumps(rec)}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["fl_engines_full_width"] = out
+    return total
+
+
+def fl_restarts_reduced(fl):
+    """``--population`` (eftopk over a sparse store, P = 24, cohort 3) and
+    ``--engine async`` (eftopk over a sparse store, P = 10) at ``reduced()``
+    size: a crash and resume equal to the uninterrupted run bit for bit,
+    every client's residual included."""
+    import tempfile
+    from repro_torch.fed import engine as eng
+    base = dict(device="cuda", reduced=True, local_steps=1, batch=2,
+                seq=16, seed=0, verbose=False, strategy="eftopk")
+    cases = (("population", dict(clients=2, population=24, cohort=3,
+                                 fail_prob=0.25, checkpoint_every=2),
+              4, 2),
+             ("async", dict(engine="async", clients=6, population=10,
+                            cohort=2, async_buffer_k=2,
+                            async_concurrency=3, async_version_ring=2,
+                            checkpoint_every=1), 4, 2))
+    for label, kw, rounds, cut in cases:
+        with tempfile.TemporaryDirectory() as tmp:
+            full = fl.run(fl.FLTrainConfig(
+                rounds=rounds, checkpoint_dir=os.path.join(tmp, "a"),
+                **base, **kw))
+            d = os.path.join(tmp, "b")
+            fl.run(fl.FLTrainConfig(rounds=cut, checkpoint_dir=d, **base,
+                                    **kw))
+            resumed = fl.run(fl.FLTrainConfig(rounds=rounds,
+                                              checkpoint_dir=d, **base,
+                                              **kw))
+        check(all(bits_equal(a, b) for (_, a), (_, b) in zip(
+            eng.tree_items(full["params"]),
+            eng.tree_items(resumed["params"]))),
+            f"fl {label} restart: params bit for bit")
+        check(full["losses"][cut:] == resumed["losses"],
+              f"fl {label} restart: losses")
+        store = full["residuals"]
+        dense = store.dump_dense()
+        check(dense.any() and np.array_equal(
+            dense.view(np.uint32),
+            resumed["residuals"].dump_dense().view(np.uint32)),
+            f"fl {label} restart: every client's residual bit for bit")
+        print(f"[fl {label}] restart at reduced() size (eftopk, sparse "
+              f"store): {cut} rounds, then resume to {rounds} == "
+              f"{rounds} rounds bit for bit, store included")
+
+
 def fl_train_phase(kern, zero, record):
     """Real-model FL training at stablelm-1.6b's full width on the card:
     (a) ``threshold_find`` and ``fused_merge`` bit for bit against their
     twins at the real leaf shapes (``BIG_LEAVES``: C * n up to 2.2e9) and
     timed at the w_up leaf; (b) one client's full-width gradient twice,
     bit for bit; ``fl_train.run(engine="round")`` at the CLI's defaults
-    (bcrs_opwa, C = 8, 3 rounds), then eftopk at C = 4 for 2 rounds (its
-    f32 residuals do not fit at C = 8), each with the counts reset just
-    before and read just after: finite losses, each kernel launched leaves
-    x rounds, wall per round (first apart), peak memory, the merge's share
-    of a round from CUDA events around each leaf's ``compress_merge_leaf``;
-    (c) after the eftopk run, one round's deltas from its trained state
-    through both routes of ``compress_merge_leaf``
-    (``routes_on_the_same_deltas``); (d) a restart
-    at ``reduced()`` depth and width (eftopk, 3 rounds then resume to 6)
-    equal to 6 rounds bit for bit. Returns (launches per kernel over the
-    two full-width runs, the kernels' worst twin differences, timing
-    rows)."""
+    (bcrs_opwa, C = 8, 4 rounds), eftopk at C = 4 (its f32 residuals do
+    not fit at C = 8) and bcrs_opwa with ``fail_prob`` 0.3, each with the
+    counts reset just before and read just after: finite losses, each
+    kernel launched leaves x rounds, wall per round (first apart), peak
+    memory, the merge's share of a round from CUDA events around each
+    leaf's ``compress_merge_leaf``; (c) after the eftopk run, one round's
+    deltas from its trained state through both routes of
+    ``compress_merge_leaf`` (``routes_on_the_same_deltas``); (d) each run
+    again through the mesh scan (``scan_against_round``), two replays
+    profiled (``profile_scan_replay``); (e) ``--population`` and
+    ``--engine async`` at full width (``fl_engines_at_full_width``); (f)
+    restarts at ``reduced()`` depth and width: the round engine (eftopk, 3
+    rounds then resume to 6), population and async
+    (``fl_restarts_reduced``), each equal to the uninterrupted run bit for
+    bit. Returns (launches per kernel over the full-width runs, the
+    kernels' worst twin differences, timing rows)."""
     import gc
     import tempfile
     from repro_torch.fed import engine as eng
@@ -1710,10 +1975,12 @@ def fl_train_phase(kern, zero, record):
           f"one client's loss {loss0:.4f}, its gradient bit-reproducible")
 
     total = dict(zero)
-    runs = {}
+    runs, scans = {}, {}
     for label, kw in (("bcrs_opwa C=8", dict(rounds=FL_ROUNDS)),
                       ("eftopk C=4", dict(rounds=FL_EF_ROUNDS,
-                                          strategy="eftopk", clients=4))):
+                                          strategy="eftopk", clients=4)),
+                      (f"bcrs_opwa C=8 fail {FL_FAIL}",
+                       dict(rounds=FL_ROUNDS, fail_prob=FL_FAIL))):
         cfg = fl.FLTrainConfig(engine="round", device="cuda", **kw)
         torch.cuda.reset_peak_memory_stats()
         events = []
@@ -1738,7 +2005,8 @@ def fl_train_phase(kern, zero, record):
         wall = res["wall_per_round"]
         peak = torch.cuda.max_memory_allocated()
         runs[label] = dict(
-            strategy=cfg.strategy, clients=cfg.clients, rounds=n_rounds,
+            strategy=cfg.strategy, clients=cfg.clients,
+            fail_prob=cfg.fail_prob, rounds=n_rounds,
             losses=res["losses"], wall_per_round_s=wall,
             first_round_s=wall[0], later_rounds_s=wall[1:],
             merge_ms_per_round=merge_ms,
@@ -1751,6 +2019,10 @@ def fl_train_phase(kern, zero, record):
               f"; peak memory {peak / 1e9:.2f} GB; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
         params, residuals = res["params"], res["residuals"]
+        ref = dict(executed_rounds=res["executed_rounds"],
+                   losses=res["losses"], params=host_copy(params),
+                   residuals=(host_copy(residuals)
+                              if cfg.strategy == "eftopk" else None))
         del res, events
         gc.collect()
         torch.cuda.empty_cache()
@@ -1761,6 +2033,41 @@ def fl_train_phase(kern, zero, record):
         del params, residuals
         gc.collect()
         torch.cuda.empty_cache()
+        # the same run through the mesh scan: one CUDA graph a round
+        scans[label], counts = scan_against_round(kern, zero, fl, cfg, ref,
+                                                  leaves, n_params, label)
+        for name, n in counts.items():
+            total[name] += n
+        scans[label]["round_engine_later_rounds_s"] = wall[1:]
+        scans[label]["masked_slots_per_round"] = masked_slots(fl, cfg,
+                                                              n_params)
+        del ref
+        gc.collect()
+
+    # two replays under the profiler, and what the masked slots cost: the
+    # replay trains every slot, so a masked slot costs its share of the
+    # replay's device time outside the merge
+    prof = profile_scan_replay(fl, fl.FLTrainConfig(engine="scan",
+                                                    device="cuda"), record)
+    busy = prof["device_busy_ms_per_replay"]
+    fail = scans[f"bcrs_opwa C=8 fail {FL_FAIL}"]
+    if busy != "not measured":
+        merge = sum(runs["bcrs_opwa C=8"]["merge_ms_per_round"][1:]) / (
+            FL_ROUNDS - 1)
+        per_slot = (busy - merge) / 8
+        fail["masked_slot_device_ms_estimate"] = per_slot
+        fail["masked_device_ms_per_round"] = [
+            m * per_slot for m in fail["masked_slots_per_round"]]
+    print(f"[fl scan] fail {FL_FAIL}: masked slots a round "
+          f"{fail['masked_slots_per_round']}, device ms they cost a round "
+          f"{fail.get('masked_device_ms_per_round', 'not measured')}")
+    check(any(fail["masked_slots_per_round"][1:]),
+          "the fail run's replayed rounds hold masked slots")
+
+    for name, n in fl_engines_at_full_width(kern, zero, fl, leaves,
+                                            record).items():
+        total[name] += n
+    fl_restarts_reduced(fl)
 
     # the restart check at reduced depth and width, to keep the checkpoint
     # bytes small
@@ -1784,7 +2091,7 @@ def fl_train_phase(kern, zero, record):
           "64, eftopk, 3 rounds then resume to 6) == 6 rounds bit for bit")
     record["fl_train_phase"] = dict(
         model="stablelm-1.6b", parameters=n_params, leaves=leaves,
-        runs=runs, seconds=time.perf_counter() - t_phase,
+        runs=runs, scans=scans, seconds=time.perf_counter() - t_phase,
         launches={k: v for k, v in total.items() if v},
         restart="reduced() depth and width, bit for bit")
     print(f"[fl phase] {time.perf_counter() - t_phase:.1f} s, launches "

@@ -33,6 +33,49 @@ def flatten_tree(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
                       for k in sorted(tree)])
 
 
+def _sorted_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _sorted_leaves(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def ravel_tree(tree) -> Tuple[torch.Tensor, Callable]:
+    """Nested dict of tensors -> ``(flat [n], unravel)``, the contract of
+    ``jax.flatten_util.ravel_pytree`` (the reference's ``flatten_tree``):
+    leaves in sorted-key order at every level, cast to their promoted
+    dtype, so an all-bf16 tree gives a bf16 vector and a tree that mixes
+    bf16 and f32 an f32 one. With one leaf dtype ``unravel`` keeps the
+    dtype of the vector it is given; with several it takes only the
+    promoted dtype and casts each leaf back to its own."""
+    leaves = _sorted_leaves(tree)
+    dtypes = [leaf.dtype for _, leaf in leaves]
+    to = dtypes[0]
+    for dt in dtypes[1:]:
+        to = torch.promote_types(to, dt)
+    uniform = all(dt == to for dt in dtypes)
+    flat = torch.cat([leaf.reshape(-1).to(to) for _, leaf in leaves])
+    specs = [(path, tuple(leaf.shape), leaf.numel(), leaf.dtype)
+             for path, leaf in leaves]
+
+    def unravel(vec: torch.Tensor):
+        if not uniform and vec.dtype != to:
+            raise TypeError(f"unravel function given array of dtype "
+                            f"{vec.dtype} but expected dtype {to}")
+        out: Dict = {}
+        off = 0
+        for path, shape, size, dtype in specs:
+            leaf = vec[off:off + size].reshape(shape)
+            off += size
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf if uniform else leaf.to(dtype)
+        return out
+
+    return flat, unravel
+
+
 def k_for_ratio(n: int, cr: float) -> int:
     """Host-side retained count for compression ratio ``cr`` over ``n``
     parameters: round(n·cr) clamped to [1, n] (Python ``round`` in f64, CR=1

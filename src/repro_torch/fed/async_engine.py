@@ -21,7 +21,9 @@ member's arithmetic does not depend on the wave's width. On the card
 batched matmuls and reductions pick their kernels by the batch count, so
 every wave trains at one static width, ``wave_bucket(max(K, M))``
 (``wave_width``); the reference's power-of-two buckets are kept as
-telemetry (``wave_sizes``, ``wave_buckets_used``).
+telemetry (``wave_sizes``, ``wave_buckets_used``). A real model's wave
+(``fl_train --engine async``, ``make_model_wave_train_step``) trains its
+members one at a time, so no member's bits depend on the wave.
 
 Per-client EF residuals live in a dense ``[P + 1, n]`` host array
 (``async_dense_store``; sentinel row P, the pop_scan convention) or, by
@@ -145,6 +147,38 @@ def make_wave_train_step(loss_fn: Callable, params_template, *, lr: float,
                                       make_batches(x), x["step_mask"],
                                       stacked=True)
         return engine_mod.flatten_client_trees(deltas)
+
+    return WaveTrainStep(train, strategy)
+
+
+def make_model_wave_train_step(loss_fn: Callable, params_template, *,
+                               lr: float, make_batches: Callable,
+                               strategy: str = "") -> WaveTrainStep:
+    """Wave training for a real model (``fl_train --engine async``): a
+    ring of retained flat versions [V, n] + a padded wave plan -> a list of
+    the real members' flat f32 deltas [n], in wave order (the first
+    ``x["members"]`` rows of the plan; the padding is not trained).
+
+    Members train one at a time through ``make_model_local_trainer``
+    (``Model.loss_fn`` takes one client's batch), each from its own ring
+    row unflattened to the params' own dtypes, so a member's delta depends
+    on its own version, batches and mask alone: the reference's vmapped
+    wave gives each member the same delta whatever the wave holds."""
+    unflatten = engine_mod.make_unflatten(params_template)
+    local_train = engine_mod.make_model_local_trainer(loss_fn, lr)
+    BUILD_COUNTS[("async_train", strategy)] += 1
+
+    def train(ring, x):
+        batches = make_batches(x)
+        out = []
+        for j in range(x["members"]):
+            params = unflatten(ring[int(x["ver_idx"][j])])
+            deltas, _losses = local_train(
+                params, {k: b[j:j + 1] for k, b in batches.items()},
+                x["step_mask"][j:j + 1])
+            del params
+            out.append(engine_mod.flatten_client_trees(deltas)[0])
+        return out
 
     return WaveTrainStep(train, strategy)
 
@@ -410,10 +444,14 @@ class BufferedAsyncLoop:
                     "materialized (forced retirement should prevent this)")
             ver_idx[j] = slot
         x["ver_idx"] = torch.as_tensor(ver_idx, device=self.device)
+        x["members"] = w             # the real rows lead, the padding follows
         out = self.wave_train(self.ring, x)
         for j, (u, _c, _v) in enumerate(members):
-            # a copy: a view would keep the whole padded wave resident
-            self.inflight_updates[u] = out[j].clone()
+            # a row of a stacked wave is a view, which would keep the whole
+            # padded wave resident: copy it; a list's rows are their own
+            self.inflight_updates[u] = (out[j].clone()
+                                        if isinstance(out, torch.Tensor)
+                                        else out[j])
         self.train_calls += 1
         self.train_rows += w
         self.wave_sizes.append(w)

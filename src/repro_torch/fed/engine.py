@@ -1,5 +1,6 @@
 """Flat-space compression/aggregation substrate and the whole-simulation
-engine (torch port of the flat half of ``repro.fed.engine``).
+engine, and the per-leaf half for real models (torch port of
+``repro.fed.engine``).
 
   * ``ClientUpdateSpec`` / ``spec_for`` — static description of the client
     update pipeline (strategy, global or block Top-K, kernel routing, OPWA
@@ -22,7 +23,11 @@ engine (torch port of the flat half of ``repro.fed.engine``).
     SGD one client at a time into preallocated ``[C, *leaf]`` deltas),
     ``compress_merge_leaf`` (one leaf's Top-K / EF / codec and merge; on
     CUDA tensors ``threshold_find`` + ``fused_merge`` on a ``[C, leaf_n]``
-    view) and ``init_mesh_residuals``.
+    view) and ``init_mesh_residuals``;
+  * ``make_mesh_sim_scan`` — the real-model trajectory (``fl_train
+    --engine scan``): on the card one captured CUDA graph of
+    ``mesh_round.make_round_body``, replayed once a round over
+    device-resident plan rows (``MeshScanProgram``).
 
 Everything strategy-shaped is read from the capability record; this module
 never matches strategy names.
@@ -30,6 +35,8 @@ never matches strategy names.
 from __future__ import annotations
 
 import collections
+import gc
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -118,29 +125,31 @@ def compress_batch_fn(spec: ClientUpdateSpec) -> Callable:
 
 
 # ------------------------------------------------------------- flat <-> dict
-def make_unflatten(params_template: Dict[str, torch.Tensor]) -> Callable:
-    """[n] flat f32 -> dict shaped like ``params_template``, in sorted-key
-    order (the reference's ravel order); [C, n] rows -> dict of [C, ...]
-    (the inverse of ``flatten_client_trees``). The leaves are views of
-    ``flat``."""
-    specs = [(k, tuple(params_template[k].shape),
-              int(params_template[k].numel())) for k in sorted(params_template)]
+def make_unflatten(params_template) -> Callable:
+    """[n] flat -> a (nested) dict shaped like ``params_template``, in
+    sorted-key order at every level (the reference's ravel order), each
+    leaf in its template's dtype; [C, n] rows -> dict of [C, ...] (the
+    inverse of ``flatten_client_trees``). A leaf whose dtype is the flat
+    vector's is a view of ``flat``."""
+    specs = [(path, tuple(leaf.shape), int(leaf.numel()), leaf.dtype)
+             for path, leaf in tree_items(params_template)]
 
-    def unflatten(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out, off = {}, 0
-        for key, shape, size in specs:
-            out[key] = flat[..., off:off + size].view(*flat.shape[:-1],
-                                                       *shape)
+    def unflatten(flat: torch.Tensor):
+        out, off = [], 0
+        for path, shape, size, dtype in specs:
+            leaf = flat[..., off:off + size].view(*flat.shape[:-1], *shape)
+            out.append((path, leaf.to(dtype)))
             off += size
-        return out
+        return tree_from_items(out)
 
     return unflatten
 
 
-def flatten_client_trees(deltas: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """dict of [C, ...] tensors -> [C, n] f32 in sorted-key (ravel) order."""
-    return torch.cat([deltas[k].reshape(deltas[k].shape[0], -1)
-                      .to(torch.float32) for k in sorted(deltas)], dim=1)
+def flatten_client_trees(deltas) -> torch.Tensor:
+    """(nested) dict of [C, ...] tensors -> [C, n] f32 in sorted-key
+    (ravel) order."""
+    return torch.cat([leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+                      for _, leaf in tree_items(deltas)], dim=1)
 
 
 # ------------------------------------------------- sparse EF residual codec
@@ -616,7 +625,8 @@ def tree_from_items(items):
     return out
 
 
-def make_model_local_trainer(loss_fn: Callable, lr: float):
+def make_model_local_trainer(loss_fn: Callable, lr: float,
+                             skip_masked: bool = True):
     """``local_train(params, batches, step_mask) -> (deltas, losses)``: the
     reference's masked local SGD for a real model, one client at a time.
 
@@ -627,20 +637,32 @@ def make_model_local_trainer(loss_fn: Callable, lr: float):
     (``lr`` rounded to that dtype first, as the reference's weakly typed
     scalar is; bf16 at full width), and its delta ``params - final`` (in
     the param's dtype) is written into a preallocated ``[C, *leaf]`` buffer,
-    so the cohort costs C deltas and one working copy. Steps with
-    ``step_mask`` False are skipped, exact no-ops; the mask is read on the
-    host once a call. The reported loss is the pre-update loss of a
-    client's last real step (0 for a client with none).
+    so the cohort costs C deltas and one working copy. The reported loss
+    is the pre-update loss of a client's last real step (0 for a client
+    with none).
+
+    Steps with ``step_mask`` False are exact no-ops. With ``skip_masked``
+    the mask is read on the host once a call and such steps (and clients
+    with none) are skipped. Without it nothing is read on the host, as a
+    CUDA graph needs: every (client, step) runs and ``torch.where`` keeps
+    the old params where the mask is False. A real step runs the same ops
+    on the same inputs either way, and a client with no real step gives
+    ``p - p = +0``, the skipping route's zeros, so the two routes agree
+    bit for bit.
 
     One client at a time is the reference's wave-composition contract: a
     client's delta depends on its own params, batches and mask alone, so it
     is the delta the reference's vmap gives that client. Returns (deltas,
     nested like params, of [C, *leaf]; losses f32 [C])."""
     def local_train(params, batches, step_mask):
-        mask = torch.as_tensor(step_mask).cpu().numpy().astype(bool)
-        c, n_steps = mask.shape
+        step_mask = torch.as_tensor(step_mask)
+        c, n_steps = step_mask.shape
+        mask = (step_mask.cpu().numpy().astype(bool) if skip_masked
+                else np.ones((c, n_steps), bool))
         items = tree_items(params)
         dev = items[0][1].device
+        on_dev = (None if skip_masked
+                  else step_mask.to(device=dev, dtype=torch.bool))
         steps = {dtype: torch.full((), lr, dtype=dtype, device=dev)
                  for dtype in {p.dtype for _, p in items}}
         deltas = [torch.empty((c,) + tuple(p.shape), dtype=p.dtype,
@@ -661,10 +683,20 @@ def make_model_local_trainer(loss_fn: Callable, lr: float):
                     {k: b[ci, s] for k, b in batches.items()})
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
                 with torch.no_grad():
-                    for t, g in zip(cur, grads):
-                        if g is not None:      # an unused leaf: g = 0
-                            t.sub_(steps[t.dtype] * g.to(t.dtype))
-                losses[ci] = loss.detach().to(torch.float32)
+                    loss = loss.detach().to(torch.float32)
+                    if skip_masked:
+                        for t, g in zip(cur, grads):
+                            if g is not None:      # an unused leaf: g = 0
+                                t.sub_(steps[t.dtype] * g.to(t.dtype))
+                        losses[ci] = loss
+                    else:
+                        m = on_dev[ci, s]
+                        for j, (t, g) in enumerate(zip(cur, grads)):
+                            if g is not None:
+                                t = t.detach()
+                                cur[j] = torch.where(
+                                    m, t - steps[t.dtype] * g.to(t.dtype), t)
+                        losses[ci] = torch.where(m, loss, losses[ci])
             with torch.no_grad():
                 for (_, p), t, d in zip(items, cur, deltas):
                     torch.sub(p, t, out=d[ci])
@@ -768,3 +800,188 @@ def init_mesh_residuals(params_template, cohort: int):
         (path, torch.zeros((cohort,) + tuple(p.shape), dtype=torch.float32,
                            device=p.device))
         for path, p in tree_items(params_template))
+
+
+# ---------------------------------------------------------- the mesh scan
+#: ("mesh_scan", strategy) -> mesh-scan programs prepared for a run's
+#: buffers by ``MeshSimScan.compile``: one a run, however many chunks it
+#: replays (on the card each is one CUDA graph capture)
+TRACE_COUNTS: collections.Counter = collections.Counter()
+
+
+class MeshSimScan:
+    """The multi-round real-model program of ``make_mesh_sim_scan``.
+    ``compile(params, residuals, xs)`` binds it to those buffers and a
+    chunk of plan rows and returns a ``MeshScanProgram``; ``sim(params,
+    residuals, xs)`` compiles and runs the chunk."""
+
+    def __init__(self, body: Callable, strategy: str, ef: bool):
+        self.body = body
+        self.strategy = strategy
+        self.ef = ef
+
+    def compile(self, params, residuals, xs) -> "MeshScanProgram":
+        return MeshScanProgram(self, params, residuals, xs)
+
+    def __call__(self, params, residuals, xs):
+        return self.compile(params, residuals, xs)()
+
+
+class MeshScanProgram:
+    """Rounds of the real-model trajectory, bound to the run's ``params``
+    and per-leaf EF ``residuals``, which every round updates in place.
+
+    The plan rows (``xs``, numpy or tensors, [T, ...]) live on the device
+    in static buffers of the first chunk's length; ``load(xs)`` copies a
+    later chunk (no longer) into them. A device counter picks each round's
+    row inside the round, and each round's loss lands in a device ``[T]``
+    buffer, so a round takes no host-to-device copy and no host read.
+
+    On the card the round is captured once into a ``CUDAGraph`` and every
+    later round, in this chunk and the next ones, is one replay. The
+    capture comes after the first round has run for real, eagerly, on the
+    capture's stream: that round loads the kernels, cuBLAS and the autograd
+    engine and fills the allocator, none of which a capture may do, and it
+    needs no copy of the state (a full-width model's EF residuals would not
+    fit twice). The eager round's cached blocks are released before the
+    capture, so they and the graph's private pool are not held together.
+    The graph runs the same kernels on the same inputs as an eager round,
+    so its replays give the eager round's bits. ``threshold_find.reads_log``
+    is off during the eager round and the capture, and the kernels'
+    launches recorded by the capture are added to their counters at each
+    replay. Capture failure raises; nothing falls back to eager rounds on
+    the card. On the CPU every round runs eagerly, once a row.
+
+    Calling the program runs the loaded rounds and returns ``{"params",
+    "residuals", "ys": {"loss" [T]}}``; ``capture_s`` is the time the call
+    spent capturing (0 once captured), ``eager_s`` the wall of the eager
+    round (None on the CPU), ``launches_per_replay`` the kernel launches
+    one replay makes."""
+
+    def __init__(self, sim: MeshSimScan, params, residuals, xs):
+        self.sim = sim
+        self.params, self.residuals = params, residuals
+        self.device = tree_items(params)[0][1].device
+        dev = self.device
+        self.xs = _map_tree(
+            lambda v: torch.as_tensor(v, device=dev).clone(), xs)
+        self.capacity = self.rounds = int(self.xs["active"].shape[0])
+        self.counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.loss = torch.zeros((self.capacity,), dtype=torch.float32,
+                                device=dev)
+        self.graph = None
+        self.launches_per_replay: Dict = {}
+        self.capture_s = 0.0
+        self.eager_s: Optional[float] = None
+        TRACE_COUNTS[("mesh_scan", sim.strategy)] += 1
+
+    def load(self, xs) -> None:
+        """Copy a chunk's plan rows ([T', ...], T' <= the first chunk's T)
+        into the static buffers."""
+        flat_new = tree_items(xs)
+        flat_old = dict(tree_items(self.xs))
+        t = int(np.asarray(xs["active"]).shape[0])
+        if t > self.capacity:
+            raise ValueError(f"chunk of {t} rounds exceeds the program's "
+                             f"{self.capacity}")
+        for path, v in flat_new:
+            buf = flat_old[path]
+            v = torch.as_tensor(v)
+            if tuple(v.shape[1:]) != tuple(buf.shape[1:]):
+                raise ValueError(f"xs{list(path)}: rows of shape "
+                                 f"{tuple(v.shape[1:])}, program holds "
+                                 f"{tuple(buf.shape[1:])}")
+            buf[:t].copy_(v)
+        self.rounds = t
+
+    def _step(self) -> None:
+        """One round: read row ``counter``, run the body on the bound
+        state, record its loss at that row, advance."""
+        row = _map_tree(lambda v: v.index_select(0, self.counter)[0],
+                        self.xs)
+        _, _, loss = self.sim.body(
+            self.params, self.residuals if self.sim.ef else None,
+            row["batches"], row["step_mask"], row["weights"], row["crs"],
+            row["active"])
+        self.loss.index_copy_(0, self.counter,
+                              loss.to(torch.float32).reshape(1))
+        self.counter.add_(1)
+
+    def _eager_round_and_capture(self) -> None:
+        from repro_torch.kernels import build
+        from repro_torch.kernels.threshold_find import threshold_find
+        dev = self.device
+        reads_log, threshold_find.reads_log = threshold_find.reads_log, None
+        try:
+            t0 = time.perf_counter()
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self._step()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            torch.cuda.synchronize(dev)
+            self.eager_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+            graph = torch.cuda.CUDAGraph()
+            with build.captured_launches() as per_replay:
+                with torch.cuda.graph(graph, stream=stream):
+                    self._step()
+            torch.cuda.synchronize(dev)
+            self.capture_s = time.perf_counter() - t0
+        finally:
+            threshold_find.reads_log = reads_log
+        self.graph = graph
+        self.launches_per_replay = dict(per_replay)
+
+    def __call__(self):
+        self.counter.zero_()
+        self.capture_s = 0.0
+        for i in range(self.rounds):
+            if self.device.type != "cuda":
+                self._step()
+            elif self.graph is None:
+                self._eager_round_and_capture()
+            else:
+                self.graph.replay()
+                for wrapper, n in self.launches_per_replay.items():
+                    wrapper.launches += n
+        return {"params": self.params, "residuals": self.residuals,
+                "ys": {"loss": self.loss[:self.rounds]}}
+
+
+def make_mesh_sim_scan(loss_fn: Callable, params_template, *, lr: float,
+                       strategy: str = "bcrs_opwa", eta: float = 1.0,
+                       gamma: float = 5.0, overlap_d: int = 1,
+                       use_kernel="auto") -> MeshSimScan:
+    """The real-model FL trajectory as one program (the reference's
+    ``lax.scan`` of ``mesh_round.make_round_body``): the params (nested
+    dict, any leaf dtypes) and the per-leaf EF residuals (``[C, *leaf]``
+    f32, eftopk; a ``[0]`` placeholder without EF) are carried in place
+    from round to round::
+
+        sim(params, residuals,
+            xs: {"batches"   dict of [T, C, S, ...] stacked client batches,
+                 "step_mask" [T, C, S] bool,   # padded-step validity
+                 "active"    [T, C]    bool,   # padded cohort-slot validity
+                 "weights"   [T, C]    f32,    # 0 at inactive slots
+                 "crs"       [T, C]    f32})   # per-client BCRS ratios
+        -> {"params", "residuals", "ys": {"loss" [T]}}
+
+    ``T`` is a chunk of rounds: ``launch.fl_train`` compiles the program
+    once a run (``TRACE_COUNTS[("mesh_scan", strategy)]``) and ``load``s
+    each later chunk into it. How the rounds run is ``MeshScanProgram``'s
+    docstring. The body trains every cohort slot's every local step and
+    discards the masked ones (``make_model_local_trainer`` with
+    ``skip_masked=False``), so a round reads nothing on the host; it gives
+    the round engine's bits, which skips them. Per-leaf retained counts
+    come from ``crs`` through ``k_for_ratio_traced``, as the host
+    scheduler's."""
+    from repro_torch.fed.mesh_round import make_round_body
+    body = make_round_body(loss_fn, lr_local=lr, eta=eta, strategy=strategy,
+                           gamma=gamma, overlap_d=overlap_d,
+                           use_kernel=use_kernel, inplace=True,
+                           skip_masked=False)
+    return MeshSimScan(body, strategy,
+                       strat_mod.get(strategy).needs_residuals)

@@ -8,9 +8,12 @@ every selection has ``core.compression.topk_compress_dynamic``'s semantics,
 and on CUDA tensors under ``use_kernel="auto"`` each leaf goes through the
 Hopper kernels ``threshold_find`` + ``fused_merge`` on a ``[C, leaf_n]``
 view). ``make_mesh_round_step`` is one round a call, the reference's
-``fl_train --engine round`` path and the bit-parity reference of its
-scanned program; ``make_fl_round_step`` is the single-round convenience
-surface over the same body.
+``fl_train --engine round`` path and the bit-parity reference of the mesh
+scan (``engine.make_mesh_sim_scan``: on the card one captured CUDA graph
+of the body a round); ``make_population_round_step`` runs the body on EF
+residuals in the client store's wire layout (``fl_train --population``);
+``make_fl_round_step`` is the single-round convenience surface over the
+same body.
 
 The port runs on one card, so the reference's TP layout and sharding
 constraints have no counterpart: a leaf keeps its natural ``[*shape]``
@@ -23,25 +26,31 @@ from __future__ import annotations
 import collections
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.core import opwa as opwa_mod
 from repro_torch.core import strategies as strat_mod
-from repro_torch.fed.engine import (compress_merge_leaf,
-                                    make_model_local_trainer, tree_from_items,
+from repro_torch.fed.engine import (compress_merge_leaf, densify_rows,
+                                    flatten_client_trees,
+                                    make_model_local_trainer, make_unflatten,
+                                    sparsify_rows, tree_from_items,
                                     tree_items)
 
-#: (strategy,) -> round steps built by ``make_mesh_round_step`` (the
-#: reference counts traces of its jitted step: one per step, however many
-#: rounds it runs)
+#: (strategy,) -> round steps built by ``make_mesh_round_step``, and
+#: ("population", strategy) -> those built by ``make_population_round_step``
+#: (the reference counts traces of its jitted steps: one per step, however
+#: many rounds it runs). The mesh scan's captures are counted in
+#: ``engine.TRACE_COUNTS``.
 TRACE_COUNTS: collections.Counter = collections.Counter()
 
 
 def make_round_body(loss_fn: Callable, *, lr_local: float = 1e-2,
                     eta: float = 1.0, strategy: str = "bcrs_opwa",
                     gamma: float = 5.0, overlap_d: int = 1,
-                    use_kernel="auto", inplace: bool = False) -> Callable:
+                    use_kernel="auto", inplace: bool = False,
+                    skip_masked: bool = True) -> Callable:
     """One real-model FL round.
 
     Returns ``body(params, residuals, batches, step_mask, coeffs, crs,
@@ -62,17 +71,22 @@ def make_round_body(loss_fn: Callable, *, lr_local: float = 1e-2,
     The server update is ``(p.f32 - eta * agg).astype(p.dtype)`` per leaf.
     With ``inplace`` the params' and residuals' tensors are overwritten and
     returned (the reference donates them); otherwise new tensors come back.
-    Leaves are merged one at a time and each leaf's deltas are freed once
-    merged, so a round holds the C deltas, one leaf's f32 view and the
-    merge's outputs. The loss is the active-masked mean of each client's
-    last real local step's pre-update loss."""
+    ``skip_masked`` picks the local trainer's route
+    (``engine.make_model_local_trainer``): masked steps skipped on the host,
+    or, for a CUDA graph, every step run and its result discarded where
+    masked; the two give the same bits. Leaves are merged one at a time
+    and each leaf's deltas are freed once merged, so a round holds the C
+    deltas, one leaf's f32 view and the merge's outputs. The loss is the
+    active-masked mean of each client's last real local step's pre-update
+    loss."""
     strat = strat_mod.get(strategy)   # config-time error, names listed
     ef = strat.needs_residuals
     compress = strat.compresses
     opwa = strat.overlap_weighted
     value_codec = strat.value_codec
     kernel_codec = strat.kernel_codec
-    local_train = make_model_local_trainer(loss_fn, lr_local)
+    local_train = make_model_local_trainer(loss_fn, lr_local,
+                                           skip_masked=skip_masked)
 
     def merge_leaf(dl, res, w, crs, active):
         if not compress:
@@ -149,6 +163,80 @@ def make_mesh_round_step(loss_fn: Callable, *, lr_local: float = 1e-2,
     TRACE_COUNTS[(strategy,)] += 1
 
     return body
+
+
+def mesh_residual_width(params_template, cr_min: float) -> int:
+    """Sparse-pair width for the population step's EF residuals: the
+    per-leaf Top-K keeps at least ``k_for_ratio_traced(leaf_n, cr)``
+    elements of every leaf, so a client's whole-model residual has at most
+    ``sum_l (leaf_n - k_l)`` nonzeros at the plan's smallest cr. The device
+    rounds k in f32 where the host would in f64, so each leaf's bound is
+    slacked by one survivor (the reference's rule, a few spare columns)."""
+    n_total, k_total = 0, 0
+    for _, leaf in tree_items(params_template):
+        ln = int(leaf.numel())
+        n_total += ln
+        k_total += max(1, min(ln, int(np.floor(ln * cr_min)) - 1))
+    return max(1, n_total - k_total)
+
+
+def make_population_round_step(loss_fn: Callable, params_template, *,
+                               lr_local: float = 1e-2, eta: float = 1.0,
+                               strategy: str = "bcrs_opwa",
+                               gamma: float = 5.0, overlap_d: int = 1,
+                               use_kernel="auto", width: int = 0,
+                               donate: bool = True) -> Callable:
+    """``make_round_body`` with the EF residuals in the client store's wire
+    layout instead of a resident per-leaf carry (the per-leaf twin of
+    ``round_step.make_population_round_step``)::
+
+        step(params, res_wire, batches, step_mask, coeffs, crs, active)
+          -> (new_params, new_res_wire, loss, overflow)
+
+    ``res_wire`` is ``(idx [C, W] int32, val [C, W] f32)`` for
+    "topk_complement" strategies (``width`` from ``mesh_residual_width``),
+    a dense ``[C, n]`` f32 matrix for "dense"-layout EF strategies, and a
+    ``[0]`` placeholder without EF (passed through). The rows are densified
+    to ``[C, n]``, viewed per leaf as ``[C, *leaf]``, run through the
+    body, then flattened and sparsified again; ``overflow`` (bool scalar)
+    is True iff a row outgrew the width. With ``donate`` the params and
+    the densified rows are updated in place. Building a step counts one in
+    ``TRACE_COUNTS[("population", strategy)]``."""
+    strat = strat_mod.get(strategy)
+    ef = strat.needs_residuals
+    layout = strat.residual_layout if ef else None
+    if layout == "topk_complement" and width <= 0:
+        raise ValueError(f"{strategy}: topk_complement wire layout needs "
+                         "width > 0 (use mesh_residual_width)")
+    body = make_round_body(loss_fn, lr_local=lr_local, eta=eta,
+                           strategy=strategy, gamma=gamma,
+                           overlap_d=overlap_d, use_kernel=use_kernel,
+                           inplace=donate)
+    items = tree_items(params_template)
+    unflatten_rows = make_unflatten(tree_from_items(
+        (path, torch.empty(leaf.shape, dtype=torch.float32, device="meta"))
+        for path, leaf in items))
+    n_total = sum(int(leaf.numel()) for _, leaf in items)
+    TRACE_COUNTS[("population", strategy)] += 1
+
+    def step(params, res_wire, batches, step_mask, coeffs, crs, active):
+        rows = (densify_rows(*res_wire, n_total)
+                if layout == "topk_complement" else res_wire)
+        res_tree = unflatten_rows(rows) if ef else None
+        new_params, new_res_tree, loss = body(
+            params, res_tree, batches, step_mask, coeffs, crs, active)
+        overflow = torch.zeros((), dtype=torch.bool, device=loss.device)
+        if layout == "topk_complement":
+            idx, val, overflow = sparsify_rows(
+                flatten_client_trees(new_res_tree), width)
+            new_wire = (idx, val)
+        elif ef:
+            new_wire = flatten_client_trees(new_res_tree)
+        else:
+            new_wire = res_wire
+        return new_params, new_wire, loss, overflow
+
+    return step
 
 
 def make_fl_round_step(model, *, lr_local: float = 1e-2, eta: float = 1.0,

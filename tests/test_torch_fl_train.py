@@ -23,7 +23,8 @@ What is held, and how closely:
   * within the port: a restart (3 rounds, then resume to 6) equal to 6
     rounds bit for bit, EF residuals included; the reference's legacy
     params-only checkpoint layout resumes; a foreign structure and a
-    drifted shape are refused; the engines not ported raise.
+    drifted shape are refused. The other engines are held in
+    ``tests/test_torch_{mesh_scan,fl_population,fl_async}.py``.
 """
 import os
 import subprocess
@@ -256,16 +257,6 @@ def test_restore_refuses_a_foreign_structure_and_a_shape_drift(tmp_path):
     with pytest.raises(ValueError, match="shape"):
         _run_t(rounds=2, strategy="eftopk", checkpoint_dir=drift,
                clients=3)
-
-
-@pytest.mark.parametrize("kw", [dict(engine="scan"), dict(engine="async"),
-                                dict(population=16)],
-                         ids=["scan", "async", "population"])
-def test_engines_not_ported_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        fl_t.run(fl_t.FLTrainConfig(**{**BASE, "device": "cpu", **kw}))
-    # the reference's defaults are kept: engine "scan"
-    assert fl_t.FLTrainConfig().engine == fl_j.FLTrainConfig().engine
 
 
 def test_cli_round_engine_on_the_cpu():
