@@ -87,7 +87,9 @@
    residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16 params
    within one ULP); ``fl_train --population`` (bcrs_opwa, P = 10,000,
    cohort 8, 3 rounds) and ``--engine async`` (bcrs_opwa, K = M = 2, a
-   version ring of 2, 3 flushes) at full width, launches counted; restarts
+   version ring of 2, 3 flushes) at full width, launches counted, the
+   async run's first flush (the whole raveled model, [2, n], C*n = 3.3e9)
+   held against both kernels' twins bit for bit; restarts
    at ``reduced()`` depth and width equal to uninterrupted runs bit for
    bit: the round engine (eftopk, 3 rounds then resume to 6), population
    and async (eftopk over a sparse client store, the store included);
@@ -1756,13 +1758,16 @@ def scan_against_round(kern, zero, fl, cfg, ref, leaves, n_params, label):
     if ref["residuals"] is not None:
         check(trees_same_bits(res["residuals"], ref["residuals"]),
               f"scan {label}: EF residuals bit for bit")
-    chunk_s = res["wall_per_round"][0] * n
-    replay_s = (chunk_s - st["eager_round_s"]) / (n - 1)
+    walls = res["wall_per_round"]
+    replay_s = walls[1]
+    check(walls == [st["eager_round_s"]] + [replay_s] * (n - 1),
+          f"scan {label}: wall_per_round the eager round's, then the "
+          f"replays' {res['wall_per_round']}")
     out = dict(strategy=cfg.strategy, clients=cfg.clients,
                fail_prob=cfg.fail_prob, rounds=n, parameters=n_params,
                losses=res["losses"], eager_round_s=st["eager_round_s"],
                replay_s_per_round=replay_s, capture_s=st["capture_s"],
-               wall_per_round_s=res["wall_per_round"][0],
+               wall_per_round_s=res["wall_per_round"],
                peak_memory_bytes=peak, launches=counts,
                launches_per_replay=st["launches_per_replay"],
                bitwise_vs_round_engine=["params", "losses"]
@@ -1823,12 +1828,117 @@ def profile_scan_replay(fl, cfg, record):
     return out
 
 
-def fl_engines_at_full_width(kern, zero, fl, leaves, record):
+def recording_first_flush(n_flat: int):
+    """Context: ``kernels.ops``' ``threshold_find`` and ``fused_merge``
+    (the async merge's route) wrapped so that the first call of each on
+    rows of the whole raveled model (``[K, n_flat]``) keeps host copies of
+    its inputs and outputs in the dict it yields (``copy_s``: the host
+    wall those copies took). The wrapped kernels still launch, and count,
+    once a call."""
+    import contextlib
+    from repro_torch.kernels import ops as kops
+
+    def host(t):
+        return None if t is None else t.detach().cpu()
+
+    rec = {"copy_s": 0.0}
+    tf_k, fm_k = kops.threshold_find, kops.fused_merge
+
+    def tf_rec(x, ks, e=None, emit_scale=False):
+        out = tf_k(x, ks, e, emit_scale=emit_scale)
+        if "th" not in rec and x.shape[1] == n_flat:
+            t0 = time.perf_counter()
+            rec.update(x=host(x), ks=host(ks), e=host(e),
+                       emit_scale=emit_scale,
+                       th=host(out[0] if emit_scale else out),
+                       absmax=host(out[1]) if emit_scale else None)
+            rec["copy_s"] += time.perf_counter() - t0
+        return out
+
+    def fm_rec(x, thresholds, weights, e=None, active=None, **kw):
+        out = fm_k(x, thresholds, weights, e, active, **kw)
+        if "agg" not in rec and x.shape[1] == n_flat:
+            t0 = time.perf_counter()
+            rec.update(weights=host(weights), active=host(active), kw=kw,
+                       agg=host(out if e is None else out[0]),
+                       new_res=None if e is None else host(out[1]))
+            rec["copy_s"] += time.perf_counter() - t0
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        kops.threshold_find, kops.fused_merge = tf_rec, fm_rec
+        try:
+            yield rec
+        finally:
+            kops.threshold_find, kops.fused_merge = tf_k, fm_k
+
+    return recording()
+
+
+def flush_against_twins(rec):
+    """The async run's first flush as recorded by ``recording_first_flush``
+    (the run's buffers freed), through both kernels' twins on the card:
+    thresholds (and absmax), agg and new residuals bit for bit."""
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import threshold_find as tf
+    check("th" in rec and "agg" in rec, "async: the first flush recorded")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = rec["x"].cuda()
+    e = rec["e"].cuda() if rec["e"] is not None else None
+    ks = rec["ks"].cuda()
+    th = rec["th"].cuda()
+    want = tf.threshold_find_plain(x, ks, e, emit_scale=rec["emit_scale"])
+    torch.cuda.synchronize()
+    if rec["emit_scale"]:
+        check(bits_equal(want[1].cpu(), rec["absmax"]),
+              "async flush 0: threshold_find absmax against its twin")
+        want = want[0]
+    check(torch.equal(want, th),
+          "async flush 0: threshold_find against its twin")
+    del want
+    torch.cuda.empty_cache()
+    act = rec["active"].cuda() if rec["active"] is not None else None
+    want = fm.fused_merge_plain(x, th, rec["weights"].cuda(), e, act,
+                                **rec["kw"])
+    if e is not None:
+        want, new_res = want
+        del x, e
+        check(bits_equal(new_res.cpu(), rec["new_res"]),
+              "async flush 0: fused_merge residuals against its twin")
+        del new_res
+    else:
+        del x
+    torch.cuda.empty_cache()
+    check(bits_equal(want, rec["agg"].cuda()),
+          "async flush 0: fused_merge agg against its twin")
+    del want
+    torch.cuda.empty_cache()
+    c, n = rec["x"].shape
+    check_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[fl async] the first flush's merge at [K={c}, n={n}] (C*n="
+          f"{c * n}): threshold_find and fused_merge bitwise equal to "
+          f"their twins on the same inputs ({check_s:.2f} s, peak "
+          f"{peak / 1e9:.2f} GB)")
+    return dict(C=c, n=n, elements=c * n, ks=rec["ks"].tolist(),
+                thresholds=rec["th"].tolist(), host_copy_s=rec["copy_s"],
+                check_s=check_s, check_peak_memory_bytes=peak,
+                bitwise=["thresholds", "agg"]
+                + (["residuals"] if rec["e"] is not None else []))
+
+
+def fl_engines_at_full_width(kern, zero, fl, leaves, n_params, record):
     """``fl_train --population`` (bcrs_opwa, P = 10,000, cohort 8, no
     store) and ``--engine async`` (bcrs_opwa, ``FL_ASYNC``) at full width,
     each with the counts reset just before and read just after: finite
     losses / params, launches (leaves x rounds; one of each kernel a
-    flush), wall, peak memory."""
+    flush), wall, peak memory. The async merge takes the whole raveled
+    model as one [K, n] row block: its first flush's kernel inputs and
+    outputs are kept on the host and, the run's buffers freed, held
+    against the twins at that shape (``flush_against_twins``)."""
+    import contextlib
     import gc
     from repro_torch.fed import engine as eng
     out, total = {}, dict(zero)
@@ -1841,8 +1951,11 @@ def fl_engines_at_full_width(kern, zero, fl, leaves, record):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        recorder = (recording_first_flush(n_params) if label == "async"
+                    else contextlib.nullcontext({}))
         t0 = time.perf_counter()
-        res, counts = drive(kern, lambda: fl.run(cfg))
+        with recorder as rec:
+            res, counts = drive(kern, lambda: fl.run(cfg))
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         check(len(res["executed_rounds"]) == kw["rounds"],
@@ -1856,22 +1969,28 @@ def fl_engines_at_full_width(kern, zero, fl, leaves, record):
                                   fused_merge=want), f"fl {label}")
         for name, n in counts.items():
             total[name] += n
-        rec = dict(config={k: v for k, v in kw.items()},
-                   strategy=cfg.strategy, losses=res["losses"],
-                   wall_per_round_s=res["wall_per_round"],
-                   run_wall_s=wall, peak_memory_bytes=peak, launches=counts)
+        run_rec = dict(config={k: v for k, v in kw.items()},
+                       strategy=cfg.strategy, losses=res["losses"],
+                       wall_per_round_s=res["wall_per_round"],
+                       run_wall_s=wall, peak_memory_bytes=peak,
+                       launches=counts)
         if label == "async":
             loop = res["async_loop"]
-            rec.update(train_calls=loop.train_calls,
-                       client_updates=loop.train_rows,
-                       wave_sizes=loop.wave_sizes,
-                       forced_retires=loop.forced_retires,
-                       peak_round_state_bytes=loop.peak_round_state_bytes)
-        out[label] = rec
-        print(f"[fl {label}] full width: {json.dumps(rec)}")
+            run_rec.update(
+                host_copy_s=rec["copy_s"], train_calls=loop.train_calls,
+                client_updates=loop.train_rows, wave_sizes=loop.wave_sizes,
+                forced_retires=loop.forced_retires,
+                peak_round_state_bytes=loop.peak_round_state_bytes)
+            del loop
+        out[label] = run_rec
+        print(f"[fl {label}] full width: {json.dumps(run_rec)}")
         del res
         gc.collect()
         torch.cuda.empty_cache()
+        if label == "async":
+            run_rec["first_flush_against_twins"] = flush_against_twins(rec)
+            del rec
+            gc.collect()
     record["fl_engines_full_width"] = out
     return total
 
@@ -2065,7 +2184,7 @@ def fl_train_phase(kern, zero, record):
           "the fail run's replayed rounds hold masked slots")
 
     for name, n in fl_engines_at_full_width(kern, zero, fl, leaves,
-                                            record).items():
+                                            n_params, record).items():
         total[name] += n
     fl_restarts_reduced(fl)
 

@@ -391,6 +391,55 @@ def _map_tree(fn: Callable, tree):
     return fn(tree)
 
 
+class CapturedRound:
+    """One round captured into a ``CUDAGraph``, for the scan programs.
+
+    ``warm_up`` (or None) runs first on the capture's side stream: the
+    first calls load the kernels, cuBLAS and the autograd engine and fill
+    the allocator, none of which a capture may do. The cached blocks are
+    then released, so the warm-up's and the graph's private pool are not
+    held together, and ``step`` is captured (into ``pool`` when given,
+    ``generator``'s state registered with the graph). ``threshold_find.
+    reads_log`` is off throughout, and the kernel launches the capture
+    records are added to their wrappers' counters at each ``replay()``.
+    ``warm_up_s`` and ``capture_s`` are the two phases' host walls. A
+    failed capture raises."""
+
+    def __init__(self, step: Callable, warm_up: Optional[Callable], device,
+                 *, pool=None, generator: Optional[torch.Generator] = None):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.threshold_find import threshold_find
+        reads_log, threshold_find.reads_log = threshold_find.reads_log, None
+        try:
+            t0 = time.perf_counter()
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            if warm_up is not None:
+                with torch.cuda.stream(stream):
+                    warm_up()
+            torch.cuda.synchronize(device)
+            self.warm_up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gc.collect()
+            torch.cuda.empty_cache()
+            self.graph = torch.cuda.CUDAGraph()
+            if generator is not None:
+                self.graph.register_generator_state(generator)
+            with build.captured_launches() as per_replay:
+                with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                    step()
+            torch.cuda.synchronize(device)
+            self.capture_s = time.perf_counter() - t0
+        finally:
+            threshold_find.reads_log = reads_log
+        self.launches = dict(per_replay)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+
+
 class SimScan:
     """The whole-simulation program of ``make_sim_scan``.
     ``compile(flat, residuals, evals, xs)`` prepares it for those buffers
@@ -457,8 +506,7 @@ class ScanProgram:
                 (self.rounds, flat.shape[0]), dtype=torch.int32, device=dev)
         self.overlap = bool(sim.with_overlap and "overlap_round" in self.host
                             and self.host["overlap_round"].any())
-        self.graphs = {}
-        self.launches_per_replay = {}
+        self.graphs: Dict[bool, CapturedRound] = {}
         if dev.type == "cuda":
             self._capture()
 
@@ -477,44 +525,31 @@ class ScanProgram:
         counter.add_(1)
 
     def _capture(self) -> None:
-        from repro_torch.kernels import build
-        from repro_torch.kernels.threshold_find import threshold_find
-        sim = self.sim
+        sim, dev = self.sim, self.flat.device
         variants = [False] + ([True] if self.overlap else [])
-        reads_log, threshold_find.reads_log = threshold_find.reads_log, None
-        try:
-            # warm-up on a side stream, on scratch copies of the state: the
-            # first calls load the kernels, cuBLAS and the autograd engine
-            # and fill the allocator, none of which a capture may do
-            side = torch.cuda.Stream(self.flat.device)
-            side.wait_stream(torch.cuda.current_stream(self.flat.device))
-            with torch.cuda.stream(side):
-                flat_w = self.flat.clone()
-                res_w = self.residuals.clone()
-                counter_w = torch.zeros_like(self.counter)
-                for overlap in variants:
-                    for _ in range(WARMUP):
-                        counter_w.zero_()
-                        self._step(flat_w, res_w, counter_w, overlap)
-            torch.cuda.current_stream(self.flat.device).wait_stream(side)
+
+        def warm_up():
+            # on scratch copies of the state, each variant WARMUP times
+            flat_w = self.flat.clone()
+            res_w = self.residuals.clone()
+            counter_w = torch.zeros_like(self.counter)
+            for overlap in variants:
+                for _ in range(WARMUP):
+                    counter_w.zero_()
+                    self._step(flat_w, res_w, counter_w, overlap)
             for buf in self.ys.values():
                 buf.zero_()
-            pool = None
-            for overlap in variants:
-                graph = torch.cuda.CUDAGraph()
-                if sim.generator is not None:
-                    graph.register_generator_state(sim.generator)
-                with build.captured_launches() as per_replay:
-                    with torch.cuda.graph(graph, pool=pool):
-                        self._step(self.flat, self.residuals, self.counter,
-                                   overlap)
-                pool = graph.pool()
-                self.graphs[overlap] = graph
-                self.launches_per_replay[overlap] = per_replay
-                CAPTURE_COUNTS[(sim.kind, sim.spec.strategy,
-                                sim.with_overlap)] += 1
-        finally:
-            threshold_find.reads_log = reads_log
+
+        pool = None
+        for overlap in variants:
+            self.graphs[overlap] = graph = CapturedRound(
+                lambda o=overlap: self._step(self.flat, self.residuals,
+                                             self.counter, o),
+                warm_up if pool is None else None, dev, pool=pool,
+                generator=sim.generator)
+            pool = graph.graph.pool()
+            CAPTURE_COUNTS[(sim.kind, sim.spec.strategy,
+                            sim.with_overlap)] += 1
 
     def __call__(self):
         host = self.host
@@ -525,8 +560,6 @@ class ScanProgram:
             overlap = self.overlap and bool(host["overlap_round"][i])
             if self.graphs:
                 self.graphs[overlap].replay()
-                for wrapper, n in self.launches_per_replay[overlap].items():
-                    wrapper.launches += n
             else:
                 self._step(self.flat, self.residuals, self.counter, overlap)
             if host["eval_write"][i]:
@@ -869,7 +902,7 @@ class MeshScanProgram:
         self.counter = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.loss = torch.zeros((self.capacity,), dtype=torch.float32,
                                 device=dev)
-        self.graph = None
+        self.graph: Optional[CapturedRound] = None
         self.launches_per_replay: Dict = {}
         self.capture_s = 0.0
         self.eager_s: Optional[float] = None
@@ -908,32 +941,10 @@ class MeshScanProgram:
         self.counter.add_(1)
 
     def _eager_round_and_capture(self) -> None:
-        from repro_torch.kernels import build
-        from repro_torch.kernels.threshold_find import threshold_find
-        dev = self.device
-        reads_log, threshold_find.reads_log = threshold_find.reads_log, None
-        try:
-            t0 = time.perf_counter()
-            stream = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self._step()
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            torch.cuda.synchronize(dev)
-            self.eager_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            gc.collect()
-            torch.cuda.empty_cache()
-            graph = torch.cuda.CUDAGraph()
-            with build.captured_launches() as per_replay:
-                with torch.cuda.graph(graph, stream=stream):
-                    self._step()
-            torch.cuda.synchronize(dev)
-            self.capture_s = time.perf_counter() - t0
-        finally:
-            threshold_find.reads_log = reads_log
-        self.graph = graph
-        self.launches_per_replay = dict(per_replay)
+        self.graph = CapturedRound(self._step, self._step, self.device)
+        self.eager_s = self.graph.warm_up_s
+        self.capture_s = self.graph.capture_s
+        self.launches_per_replay = self.graph.launches
 
     def __call__(self):
         self.counter.zero_()
@@ -945,8 +956,6 @@ class MeshScanProgram:
                 self._eager_round_and_capture()
             else:
                 self.graph.replay()
-                for wrapper, n in self.launches_per_replay.items():
-                    wrapper.launches += n
         return {"params": self.params, "residuals": self.residuals,
                 "ys": {"loss": self.loss[:self.rounds]}}
 

@@ -15,7 +15,9 @@ arrays, as the reference does. Every leaf of every round is merged through
     ``MAX_CHUNK_ROUNDS``), each chunk's plan rows on the device; on the
     card the first round runs eagerly and the round is captured once a run
     as a CUDA graph, replayed for every later round of every chunk; params
-    and EF residuals checkpointed at every chunk boundary;
+    and EF residuals checkpointed at every chunk boundary. A round's
+    ``wall_per_round`` is its chunk's replay wall over the chunk's replays,
+    the capture excluded; the eager round keeps its own wall;
   * ``round``: one ``fed.mesh_round.make_mesh_round_step`` call a round,
     the scan's bit-parity reference;
   * ``async``: FedBuff buffered training through
@@ -229,7 +231,8 @@ def _on(device, a: np.ndarray) -> torch.Tensor:
 
 
 def _chunk_rounds(cfg: FLTrainConfig, n_todo: int) -> int:
-    """Rounds per scan chunk (and per checkpoint of the round engine):
+    """Rounds per scan chunk (and per checkpoint of the round and
+    population engines):
     ``checkpoint_every``, else the default cadence with a directory, else
     the whole run up to ``MAX_CHUNK_ROUNDS``."""
     if cfg.checkpoint_every > 0:
@@ -367,11 +370,18 @@ def run(cfg: FLTrainConfig, init_params=None) -> dict:
             loss_c = res_c["ys"]["loss"].tolist()   # waits for the chunk
             synchronize(dev)
             # the capture is excluded, as the reference excludes compile
-            wall = (time.perf_counter() - t0 - program.capture_s) / len(idx)
+            wall = time.perf_counter() - t0 - program.capture_s
+            walls = [wall / len(idx)] * len(idx)
+            if program.capture_s:
+                # the run's first round ran eagerly before the capture: it
+                # keeps its own wall, the chunk's replays share the rest
+                n_rep = len(idx) - 1
+                rest = (wall - program.eager_s) / max(n_rep, 1)
+                walls = [program.eager_s] + [rest] * n_rep
             capture_s += program.capture_s
             params, residuals = res_c["params"], res_c["residuals"]
             for j, i in enumerate(idx):
-                account_and_log(i, loss_c[j], wall)
+                account_and_log(i, loss_c[j], walls[j])
             chunk_rounds.append(len(idx))
             save(plan.rounds[idx[-1]] + 1)
             pos += len(idx)
@@ -403,7 +413,7 @@ def run(cfg: FLTrainConfig, init_params=None) -> dict:
            "times": times, "resumed_from": resumed_from}
     if program is not None:
         # what the capture cost and what a replay launches, apart from
-        # wall_per_round (the eager first round is in the first chunk's)
+        # wall_per_round (whose first entry is the eager round's on the card)
         out["scan"] = {
             "capture_s": capture_s, "eager_round_s": program.eager_s,
             "launches_per_replay": {w.__name__: n for w, n in
@@ -624,12 +634,7 @@ def _run_population(cfg: FLTrainConfig, model, model_cfg, params, plan,
                 cfg.checkpoint_dir, ckpt.list_steps(cfg.checkpoint_dir))
 
     todo = [i for i, rnd in enumerate(plan.rounds) if rnd >= start]
-    if cfg.checkpoint_every > 0:
-        chunk = cfg.checkpoint_every
-    elif cfg.checkpoint_dir:
-        chunk = DEFAULT_CHECKPOINT_EVERY
-    else:
-        chunk = max(len(todo), 1)
+    chunk = _chunk_rounds(cfg, len(todo))
     losses: List[float] = []
     wall_per_round: List[float] = []
     zero_wire = torch.zeros((0,), dtype=torch.float32, device=dev)

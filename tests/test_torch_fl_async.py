@@ -19,8 +19,13 @@ What is held, and how closely:
     backward's reduction lengths, ``tests/test_torch_fl_train.py``); bf16:
     ``(F·S + 1)`` bf16 ULPs of the leaf's largest magnitude (each local
     step's bf16 rounding may land one ULP apart, and the f32 server vector
-    is rounded once more into the leaf's dtype). Compressive runs'
-    params are not compared (a Top-K near-tie can take another element);
+    is rounded once more into the leaf's dtype). Compressive runs (bcrs_opwa,
+    and eftopk over the population store) are held after their FIRST
+    flush, as ``tests/test_torch_fl_train.py`` holds one round: the
+    flush's ks, weights and active slots bit for bit, each member's delta
+    within the delta bound, and the new vector and the members' new
+    residuals within the round bound away from near-ties (a Top-K
+    near-tie can take another element, and the runs then part there);
   * within the port, a crash and resume bit for bit with the sparse store.
 """
 import dataclasses
@@ -36,10 +41,12 @@ import torch
 from jax.flatten_util import ravel_pytree
 
 from repro.configs import get_config as get_config_j
+from repro.fed import async_engine as async_j
 from repro.launch import fl_train as fl_j
 from repro.models.transformer import Model as ModelJ
 from repro_torch.configs import get_config as get_config_t
 from repro_torch.core.compression import ravel_tree
+from repro_torch.fed import async_engine as async_t
 from repro_torch.fed import engine as engine_t
 from repro_torch.launch import fl_train as fl_t
 
@@ -164,18 +171,102 @@ def test_fedavg_against_the_reference(monkeypatch, dtype):
     assert moved > 0
 
 
+def _record_first_merge(monkeypatch, mod, to_np):
+    """Wrap ``mod.make_async_merge_step`` so that the first flush's merge
+    inputs (``updates``, ``weights``, ``ks``, ``active``, the vector
+    before it as ``flat_in``) and outputs (``flat``, and the sparse
+    residual pairs as ``res``) are kept as numpy copies."""
+    rec = {}
+    make = mod.make_async_merge_step
+
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+        fn = step._fn
+
+        def merge(flat, residuals, x):
+            first = not rec
+            if first:
+                rec.update({k: to_np(v) for k, v in x.items()})
+                rec["flat_in"] = to_np(flat)
+            out = fn(flat, residuals, x)
+            if first:
+                rec["flat"] = to_np(out["flat"])
+                if step.layout == "topk_complement":
+                    rec["res"] = [to_np(t) for t in out["residuals"]]
+            return out
+
+        step._fn = merge
+        return step
+
+    monkeypatch.setattr(mod, "make_async_merge_step", wrapped)
+    return rec
+
+
+def _dense(pairs, n):
+    idx, val = (torch.from_numpy(np.ascontiguousarray(a)) for a in pairs)
+    return engine_t.densify_rows(idx, val, n).double().numpy()
+
+
+def _first_flush_within_bounds(mj, mt, init, cj, strategy):
+    """The first flush, the port's against the reference's: its host side
+    (ks, weights, active) and the vector before it bit for bit; each
+    member's delta within the delta bound ``S·(K·2^-24·max|d| + 4·2^-24·
+    (max|p| + max|d|))`` of its leaf (``tests/test_torch_fl_train.py``);
+    the new vector (and, with EF, the members' new residuals) within the
+    round bound of that test, away from the elements where some member's
+    delta lies within twice the delta bound of its k-th magnitude."""
+    for key in ("ks", "weights", "active", "flat_in"):
+        np.testing.assert_array_equal(mt[key], mj[key])
+    act = mj["active"]
+    d_j = mj["updates"][act].astype(np.float64)
+    d_t = mt["updates"][act].astype(np.float64)
+    ks, w = mj["ks"][act], mj["weights"][act].astype(np.float64)
+    c, n = d_j.shape
+    p0 = mj["flat_in"].astype(np.float64)
+    sizes = [a.size for a in jax.tree.leaves(init)]
+    starts = np.cumsum([0] + sizes[:-1])
+    kred = cj.n_layers * (BASE["batch"] * BASE["seq"] + cj.d_model
+                          + cj.d_ff + BASE["seq"]) + cj.vocab_size
+    dmax = np.maximum.reduceat(np.abs(d_j).max(0), starts)
+    pmax = np.maximum.reduceat(np.abs(p0), starts)
+    tol = np.repeat(BASE["local_steps"] * (kred * U * dmax
+                                           + 4 * U * (pmax + dmax)), sizes)
+    assert (np.abs(d_t - d_j) <= tol).all()
+    mag = np.abs(d_j)
+    kth = -np.sort(-mag, axis=1)[np.arange(c), ks - 1]
+    keep = ~(np.abs(mag - kth[:, None]) <= 2 * tol).any(0)
+    assert keep.mean() >= 0.9
+    cfg = fl_t.FLTrainConfig(**BASE)
+    gamma = cfg.gamma if strategy == "bcrs_opwa" else 1.0
+    wx = np.abs(w[:, None] * d_j).sum(0)
+    bound = (cfg.eta * gamma * (2 * c * U * wx + w.sum() * tol)
+             + 2 * U * np.repeat(pmax, sizes))
+    diff = np.abs(mt["flat"].astype(np.float64) - mj["flat"])
+    assert (diff[keep] <= bound[keep]).all()
+    assert (mj["flat"] != mj["flat_in"])[keep].any()
+    if "res" in mj:
+        r_j, r_t = _dense(mj["res"], n)[act], _dense(mt["res"], n)[act]
+        assert (np.abs(r_t - r_j)[:, keep] <= tol[keep]).all()
+        assert (r_j[:, keep] != 0).any()
+
+
 @pytest.mark.parametrize("strategy,extra", [
     ("bcrs_opwa", {}), ("eftopk", dict(population=10, cohort=2))],
     ids=["bcrs_opwa", "eftopk-population"])
-def test_compressive_runs_against_the_reference(strategy, extra):
+def test_compressive_runs_against_the_reference(monkeypatch, strategy,
+                                                extra):
     cj, _ = _configs("f32")
     init = jax.tree.map(np.asarray, ModelJ(cj).init(
         jax.random.PRNGKey(BASE["seed"])))
     kw = dict(strategy=strategy, **extra)
+    mj = _record_first_merge(monkeypatch, async_j, np.array)
+    mt = _record_first_merge(monkeypatch, async_t,
+                             lambda t: t.detach().cpu().numpy().copy())
     rj = fl_j.run(fl_j.FLTrainConfig(**{**BASE, **kw}))
     rt = fl_t.run(fl_t.FLTrainConfig(**{**BASE, "device": "cpu", **kw}),
                   init_params=init)
     _same_host_side(rj, rt)
+    _first_flush_within_bounds(mj, mt, init, cj, strategy)
     for a, (_, b) in zip(jax.tree.leaves(rj["params"]),
                          engine_t.tree_items(rt["params"])):
         assert _dtype_name(b) == str(a.dtype) and tuple(b.shape) == a.shape
