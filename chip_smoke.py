@@ -93,7 +93,24 @@
    at ``reduced()`` depth and width equal to uninterrupted runs bit for
    bit: the round engine (eftopk, 3 rounds then resume to 6), population
    and async (eftopk over a sparse client store, the store included);
-8. the serve phase (stablelm-1.6b at full width, bf16, random weights from
+8. the centralised training phase (``launch.train`` at stablelm-1.6b's
+   full width, the CLI's defaults: B = 8, S = 256, lr 1e-2, seed 0):
+   dense sgd and ``--compressed-pods 4 --wire-cr 0.05`` (bcrs_opwa, sgd),
+   4 steps each, with the counts reset just before and read just after
+   (no merge launch dense; ``threshold_find`` and ``fused_merge`` once per
+   leaf of at least 4096 elements a step compressed, EF residuals nonzero
+   on those leaves), the wall a step, peak memory, the merge's ms a step
+   and one more step under the profiler; one step's pod gradients
+   through both routes of ``compress_merge_leaf`` (thresholds bitwise
+   against the twin, masks, ks and EF residuals bitwise, agg within
+   2*C*2^-24*gamma*sum|w v|); ``wire_cr = 1`` at 2 pods against the dense
+   step over the same slices (EF exactly 0, params within the bound of
+   ``tests/test_torch_grad_sync.py``); adamw dense and at 2 pods and
+   qtopk (int8 codec stage) at 4 pods, 2 steps each and one profiled;
+   restarts at
+   ``reduced()`` size (dense adamw, compressed) equal to uninterrupted
+   runs bit for bit;
+9. the serve phase (stablelm-1.6b at full width, bf16, random weights from
    a seed): the present ``flash_attention`` kernel against its twin
    (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
    equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
@@ -109,7 +126,7 @@
    counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
-9. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+10. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path, of the population engine and 3 flushes of the async engine
    (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
    parts: forward, backward, update) and 3 decode steps of the serve path
@@ -1580,19 +1597,66 @@ def grad_reproducible(model, params, batch):
     return float(l1)
 
 
+def routes_on_leaf(path, dl, res, w, ks, active, strat, gamma, overlap_d):
+    """One leaf's ``[C, *leaf]`` updates through ``compress_merge_leaf`` by
+    the kernel route and by the plain route: the kernel's thresholds bit
+    for bit against ``threshold_find``'s twin, its masks against the plain
+    bisection's, EF residuals bit for bit, agg within
+    2*C*2^-24*gamma*sum|w v|. Returns (agg_k, agg_p, max |d agg|, the
+    largest |d agg| over its bound)."""
+    from repro_torch.core import compression as comp
+    from repro_torch.fed import engine as eng
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import threshold_find as tf
+    c = dl.shape[0]
+    u2 = dl.float().reshape(c, -1)
+    r2 = res.reshape(c, -1) if res is not None else None
+    th = kops.topk_thresholds(u2, ks, residuals=r2)
+    check(torch.equal(th, tf.threshold_find_plain(
+        u2, ks.to(torch.int32), r2)), f"thresholds of {path}: the twin's")
+    x2 = u2 + r2 if r2 is not None else u2
+    del u2
+    mask_p = comp.topk_compress_dynamic(x2, ks).mask
+    mask_k = comp.magnitude_bits(x2) >= th[:, None]
+    check(torch.equal(mask_k, mask_p), f"masks of {path}")
+    del mask_p, th
+    if active is not None:
+        mask_k &= active[:, None]
+    g = gamma if strat.overlap_weighted else 1.0
+    wv = torch.zeros(x2.shape[1], dtype=torch.float64, device=x2.device)
+    for ci in range(c):
+        wv += (w[ci].double() * torch.where(
+            mask_k[ci], x2[ci], torch.zeros_like(x2[ci])).double()).abs()
+    del mask_k, x2
+    bound = 2 * c * 2.0 ** -24 * g * wv
+    del wv
+    kw = dict(gamma=gamma, overlap_d=overlap_d,
+              opwa=strat.overlap_weighted, residuals=res, active=active,
+              value_codec=strat.value_codec,
+              kernel_codec=strat.kernel_codec)
+    agg_k, res_k = eng.compress_merge_leaf(dl, w, ks, use_kernel=True, **kw)
+    agg_p, res_p = eng.compress_merge_leaf(dl, w, ks, use_kernel=False, **kw)
+    if res is not None:
+        check(bits_equal(res_k, res_p), f"EF residuals of {path}")
+    del res_k, res_p
+    diff = (agg_k.double() - agg_p.double()).abs().reshape(-1)
+    check(bool((diff <= bound).all()), f"agg of {path} within the bound")
+    out = (float(diff.max()),
+           float((diff / bound.clamp_min(1e-300)).max()))
+    del diff, bound
+    return (agg_k, agg_p) + out
+
+
 def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
-    """One round's deltas through ``compress_merge_leaf`` by the kernel
-    route and by the plain route, leaf by leaf: masks (the kernel's
-    thresholds against the plain bisection), ks and EF residuals bit for
-    bit; agg within 2*C*2^-24*gamma*sum|w v|; the new bf16 params within
-    one bf16 ULP."""
+    """One round's deltas through both routes of ``compress_merge_leaf``,
+    leaf by leaf (``routes_on_leaf``), ks bit for bit, and the new bf16
+    params within one bf16 ULP."""
     from repro_torch.configs import get_config
     from repro_torch.core import compression as comp
     from repro_torch.core import cost_model
     from repro_torch.core.aggregation import AggregationConfig
     from repro_torch.core.strategies import get as get_strategy
     from repro_torch.fed import engine as eng
-    from repro_torch.kernels import ops as kops
     from repro_torch.models import Model
     model = Model(get_config(cfg.arch), device="cuda")
     rng = np.random.default_rng(cfg.seed)
@@ -1606,7 +1670,6 @@ def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
                for k, v in fl._round_batches(cfg, model.cfg.vocab_size, 0,
                                              cfg.c_slots).items()}
     strat = get_strategy(cfg.strategy)
-    gamma = cfg.gamma if strat.overlap_weighted else 1.0
     train = eng.make_model_local_trainer(model.loss_fn, cfg.lr)
     deltas, _ = train(params, batches, torch.from_numpy(plan.step_mask[0]))
     w = torch.from_numpy(plan.weights[0]).cuda()
@@ -1621,7 +1684,6 @@ def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
             zip(eng.tree_items(params), r_items)):
         dl = d_items[i][1]
         d_items[i] = None
-        c = dl.shape[0]
         n = dl[0].numel()
         ks = comp.k_for_ratio_traced(n, crs)
         # the rule both routes share: round(cr * n) in f32, half to even,
@@ -1629,40 +1691,11 @@ def routes_on_the_same_deltas(fl, cfg, params, residuals, record):
         want_ks = np.clip(np.round(plan.crs[0] * np.float32(n)), 1, n)
         check(np.array_equal(ks.cpu().numpy(), want_ks.astype(np.int32)),
               f"ks of {path}")
-        u2 = dl.float().reshape(c, -1)
-        r2 = res.reshape(c, -1) if res is not None else None
-        x2 = u2 + r2 if r2 is not None else u2
-        mask_p = comp.topk_compress_dynamic(x2, ks).mask
-        th = kops.topk_thresholds(u2, ks, residuals=r2)
-        mask_k = comp.magnitude_bits(x2) >= th[:, None]
-        check(torch.equal(mask_k, mask_p), f"masks of {path}")
-        del mask_p, th
-        mask_k &= active[:, None]
-        wv = torch.zeros(x2.shape[1], dtype=torch.float64, device="cuda")
-        for ci in range(c):
-            wv += (w[ci].double() * torch.where(
-                mask_k[ci], x2[ci], torch.zeros_like(x2[ci])).double()).abs()
-        del mask_k, u2, x2
-        bound = 2 * c * 2.0 ** -24 * gamma * wv
-        del wv
-        kw = dict(gamma=cfg.gamma, overlap_d=cfg.overlap_d,
-                  opwa=strat.overlap_weighted, residuals=res, active=active,
-                  value_codec=strat.value_codec,
-                  kernel_codec=strat.kernel_codec)
-        agg_k, res_k = eng.compress_merge_leaf(dl, w, ks, use_kernel=True,
-                                               **kw)
-        agg_p, res_p = eng.compress_merge_leaf(dl, w, ks, use_kernel=False,
-                                               **kw)
+        agg_k, agg_p, d_max, ratio = routes_on_leaf(
+            path, dl, res, w, ks, active, strat, cfg.gamma, cfg.overlap_d)
         del dl
-        if res is not None:
-            check(bits_equal(res_k, res_p), f"EF residuals of {path}")
-        del res_k, res_p
-        diff = (agg_k.double() - agg_p.double()).abs().reshape(-1)
-        check(bool((diff <= bound).all()), f"agg of {path} within the bound")
-        worst_agg = max(worst_agg, float(diff.max()))
-        worst_ratio = max(worst_ratio, float(
-            (diff / bound.clamp_min(1e-300)).max()))
-        del diff, bound
+        worst_agg = max(worst_agg, d_max)
+        worst_ratio = max(worst_ratio, ratio)
         pk = (p.float() - cfg.eta * agg_k).to(p.dtype)
         pp = (p.float() - cfg.eta * agg_p).to(p.dtype)
         check(bf16_ulp_close(pk, pp) if p.dtype == torch.bfloat16
@@ -2216,6 +2249,395 @@ def fl_train_phase(kern, zero, record):
     print(f"[fl phase] {time.perf_counter() - t_phase:.1f} s, launches "
           f"{record['fl_train_phase']['launches']}")
     return total, worst, rows
+
+
+# ------------------------------------------------ centralised training
+TRAIN_STEPS = 4               # the CLI's defaults otherwise: B = 8, S = 256
+TRAIN_PODS = 4                # --compressed-pods 4 --wire-cr 0.05
+TRAIN_ADAMW_PODS = 2          # compressed adamw at 4 pods would not fit
+TRAIN_MIN_LEAF = 4096         # make_compressed_train_step's min_leaf_size
+
+
+def ulp_of(x: torch.Tensor) -> torch.Tensor:
+    """One ulp of |x| in x's dtype (bf16: 8 significant bits; f32: 24; at
+    0, the smallest normal's)."""
+    _, ex = torch.frexp(x.float().abs().clamp_min(torch.finfo(x.dtype).tiny))
+    bits = 8 if x.dtype == torch.bfloat16 else 24
+    return torch.ldexp(torch.ones_like(ex, dtype=torch.float64),
+                       ex.to(torch.float64) - bits)
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Two trees of tensors, leaf for leaf and bit for bit (ints equal)."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and (same_bits(x.cpu(), y.cpu())
+                                if x.is_floating_point()
+                                else torch.equal(x.cpu(), y.cpu()))
+        for x, y in zip(la, lb))
+
+
+def check_ef(label, ef, embed_kept_whole: bool):
+    """EF residuals after compressed steps: exactly 0 on the leaves below
+    ``TRAIN_MIN_LEAF`` (exchanged dense), nonzero on the compressed ones.
+    The embedding table's gradient is nonzero only on the rows of the
+    tokens a pod sees (at most 512 x 2048 = 1,048,576 elements, below
+    every k = cr * 205,520,896 >= 5,138,022), so Top-K keeps all of it and,
+    without a codec, its residual stays exactly 0 (``embed_kept_whole``);
+    a codec's quantization error makes it nonzero."""
+    from repro_torch.fed import engine as eng
+    for path, e in eng.tree_items(ef):
+        compressed = e[0].numel() >= TRAIN_MIN_LEAF
+        want = compressed and not (embed_kept_whole and path[0] == "embed")
+        check(bool(e.any()) == want,
+              f"train {label}: EF residuals of {path} "
+              f"{'nonzero' if want else 'exactly 0'}")
+
+
+def train_run(kern, zero, label, merges, **kw):
+    """``launch.train.run`` at stablelm-1.6b's full width, the counts set
+    to 0 just before and read just after: the steps run, finite losses,
+    ``merges`` launches of each merge kernel, the wall a step, peak memory
+    and, from CUDA events around each leaf's ``compress_merge_leaf``, the
+    merge's ms a step. Returns (the run's result, its record, counts)."""
+    import gc
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.launch import train as tr
+    cfg = tr.TrainConfig(device="cuda", **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    merge = gs.compress_merge_leaf
+    gs.compress_merge_leaf = timed_merge(merge, events)
+    try:
+        res, counts = drive(kern, lambda: tr.run(cfg))
+    finally:
+        gs.compress_merge_leaf = merge
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(res["steps_run"])
+    check(steps == cfg.steps, f"train {label}: steps run")
+    check(all(math.isfinite(v) for v in res["losses"]),
+          f"train {label}: finite losses {res['losses']}")
+    check_counts(counts, dict(zero, threshold_find=merges,
+                              fused_merge=merges), f"train {label}")
+    per = len(events) // steps
+    check(len(events) == per * steps, f"train {label}: merge events")
+    merge_ms = [sum(s.elapsed_time(e) for s, e in
+                    events[i * per:(i + 1) * per]) for i in range(steps)]
+    wall = res["wall_per_step"]
+    rec = dict(config=kw, losses=res["losses"], wall_per_step_s=wall,
+               first_step_s=wall[0], later_steps_s=wall[1:],
+               merge_ms_per_step=merge_ms,
+               merge_share=[m / 1e3 / t for m, t in zip(merge_ms, wall)],
+               peak_memory_bytes=peak, launches=counts)
+    if res["pod_crs"] is not None:
+        rec["pod_crs"] = [float(c) for c in res["pod_crs"]]
+    print(f"[train] {label}: losses {res['losses']}; wall a step (s) "
+          f"first {wall[0]:.3f}, then {[round(t, 4) for t in wall[1:]]}; "
+          f"merge {[round(m, 2) for m in merge_ms]} ms a step; peak "
+          f"memory {peak / 1e9:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return res, rec, counts
+
+
+def train_routes(model, params, ef, batch, pod_crs, record):
+    """One step's pod gradients from the compressed run's final state
+    through both routes of ``compress_merge_leaf``, leaf by leaf
+    (``routes_on_leaf``): thresholds, masks, ks and EF residuals bit for
+    bit, agg within 2*C*2^-24*gamma*sum|w v|."""
+    from repro_torch.core import compression as comp
+    from repro_torch.core.strategies import get as get_strategy
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import train as tr
+    wire = np.float32(tr.TrainConfig().wire_cr)
+    crs_np = np.clip(np.asarray(pod_crs, np.float32), 0.0, wire)
+    crs = torch.from_numpy(crs_np).cuda()
+    w = torch.full((TRAIN_PODS,), 1.0 / TRAIN_PODS, device="cuda")
+    strat = get_strategy("bcrs_opwa")
+    pods, _, _ = gs.pod_gradients(model.loss_fn, params, batch, TRAIN_PODS)
+    worst_agg, worst_ratio, leaves = 0.0, 0.0, 0
+    for i, ((path, p), (_, e)) in enumerate(zip(eng.tree_items(params),
+                                                eng.tree_items(ef))):
+        dl, pods[i] = pods[i], None
+        n = p.numel()
+        if n < TRAIN_MIN_LEAF:
+            continue
+        ks = comp.k_for_ratio_traced(n, crs)
+        want_ks = np.clip(np.round(crs_np * np.float32(n)), 1, n)
+        check(np.array_equal(ks.cpu().numpy(), want_ks.astype(np.int32)),
+              f"train ks of {path}")
+        agg_k, agg_p, d_max, ratio = routes_on_leaf(
+            path, dl, e, w, ks, None, strat, tr.GAMMA, 1)
+        del dl, agg_k, agg_p
+        torch.cuda.empty_cache()
+        worst_agg = max(worst_agg, d_max)
+        worst_ratio = max(worst_ratio, ratio)
+        leaves += 1
+    out = dict(pods=TRAIN_PODS, leaves=leaves, max_abs_agg_diff=worst_agg,
+               max_agg_diff_over_bound=worst_ratio)
+    record["routes"] = out
+    print(f"[train routes] bcrs_opwa {TRAIN_PODS} pods: {leaves} leaves, "
+          f"thresholds, masks, ks and residuals bitwise; agg max |d| "
+          f"{worst_agg:.3g} ({worst_ratio:.3g} of its bound)")
+
+
+def train_wire_cr_one(model, params, batch, record):
+    """``wire_cr = 1`` at 2 pods against the dense step over the same
+    slices (``n_micro = 2``: the pods' gradients are its microbatches'),
+    from the same params and batch, as ``tests/test_torch_grad_sync.py``
+    holds it: EF residuals exactly 0, params within ``lr * (2*C*2^-24 *
+    sum_c|w_c g_c| + r(g)) + ulp(p)`` (``r(g)`` one ulp of the merged
+    gradient in the param's dtype where that is bf16, 0 in f32)."""
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import make_optimizer
+    lr, c = tr.TrainConfig().lr, 2
+    opt = make_optimizer("sgd", lr)
+    p_d, _, m_d = gs.make_train_step(model, opt, n_micro=c)(params, (),
+                                                             batch)
+    state = gs.init_compressed_state(opt, params, n_pods=c)
+    p_c, state, m_c = gs.make_compressed_train_step(
+        model, opt, n_pods=c, wire_cr=1.0, gamma=tr.GAMMA)(
+            params, state, batch, torch.ones(c, device="cuda"),
+            torch.full((c,), 1.0 / c, device="cuda"))
+    check(all(not bool(e.any()) for _, e in eng.tree_items(state["ef"])),
+          "train wire_cr=1: EF residuals exactly 0")
+    del state
+    ld, lc = float(m_d["loss"]), float(m_c["loss"])
+    check(abs(ld - lc) <= 2 * 2.0 ** -24 * abs(ld),
+          f"train wire_cr=1: loss {lc} against dense {ld}")
+    pods, _, _ = gs.pod_gradients(model.loss_fn, params, batch, c)
+    same, worst = True, 0.0
+    for i, ((path, a), (_, b)) in enumerate(zip(eng.tree_items(p_c),
+                                                eng.tree_items(p_d))):
+        g, pods[i] = pods[i].float(), None
+        wg = (g.double().abs() / c).sum(0)
+        r = (ulp_of(g.mean(0).to(a.dtype)) if a.dtype != torch.float32
+             else torch.zeros_like(wg))
+        bound = lr * (2 * c * 2.0 ** -24 * wg + r) + torch.maximum(
+            ulp_of(a), ulp_of(b))
+        diff = (a.double() - b.double()).abs()
+        check(bool((diff <= bound).all()),
+              f"train wire_cr=1: params of {path} within the bound")
+        same &= same_bits(a.cpu(), b.cpu())
+        worst = max(worst, float(diff.max()))
+        del g, wg, r, bound, diff
+    record["wire_cr_one"] = dict(pods=c, loss=lc, dense_loss=ld,
+                                 params_bitwise_equal=bool(same),
+                                 max_abs_param_diff=worst)
+    print(f"[train wire_cr=1] {c} pods against the dense step (n_micro "
+          f"{c}): EF exactly 0, params within the bound (bit for bit: "
+          f"{bool(same)}, max |d| {worst:.3g}), loss {lc} / {ld}")
+
+
+def train_restarts_reduced():
+    """Dense adamw and the compressed step (2 pods, wire cr 0.1) at
+    ``reduced()`` size on the card: stopped after the step-3 checkpoint,
+    then resumed to 6 steps, equal to 6 uninterrupted steps bit for bit
+    (params, optimizer state, EF residuals, losses)."""
+    import tempfile
+    from repro_torch.launch import train as tr
+    base = dict(device="cuda", reduced=True, batch=4, seq=32)
+    for label, kw in (("dense adamw", dict(optimizer="adamw")),
+                      ("compressed", dict(compressed_pods=2, wire_cr=0.1))):
+        full = tr.run(tr.TrainConfig(steps=6, **base, **kw))
+        with tempfile.TemporaryDirectory() as tmp:
+            part = tr.run(tr.TrainConfig(steps=4, checkpoint_dir=tmp,
+                                         checkpoint_every=3, **base, **kw))
+            resumed = tr.run(tr.TrainConfig(steps=6, checkpoint_dir=tmp,
+                                            checkpoint_every=3, **base,
+                                            **kw))
+        check(resumed["resumed_from"] == 3
+              and part["losses"][:3] + resumed["losses"] == full["losses"],
+              f"train restart {label}: losses")
+        check(tree_bits_equal(full["params"], resumed["params"])
+              and tree_bits_equal(full["opt_state"], resumed["opt_state"]),
+              f"train restart {label}: params and state bit for bit")
+        print(f"[train] restart at reduced() size ({label}): 4 steps "
+              f"stopped after the step-3 checkpoint, resumed to 6 == 6 "
+              f"steps bit for bit")
+
+
+def train_phase(kern, zero, record):
+    """Centralised training (``launch.train``) at stablelm-1.6b's full width
+    on the card, the CLI's defaults (B = 8, S = 256, lr 1e-2, seed 0): (1)
+    dense sgd, 4 steps: no merge launch; (2) ``--compressed-pods 4
+    --wire-cr 0.05`` (bcrs_opwa, sgd), 4 steps: each merge kernel launched
+    once per leaf of at least 4096 elements a step, EF residuals nonzero
+    on those leaves; each with the wall a step, peak memory, the merge's
+    ms a step and one more step under the profiler (device idle share);
+    (3) one step's pod gradients through both routes
+    (``train_routes``); (4) ``wire_cr = 1`` against the dense step
+    (``train_wire_cr_one``); (5) adamw: dense and compressed at 2 pods, 2
+    steps each, and qtopk (int8 codec stage) at 4 pods, 2 steps; each
+    with one more step profiled; (6)
+    restarts at ``reduced()`` size (``train_restarts_reduced``). Returns
+    the launches per kernel over the driven runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    t_phase = time.perf_counter()
+    total = dict(zero)
+    runs = {}
+    cfg0 = tr.TrainConfig(device="cuda")
+    model = Model(get_config(cfg0.arch), device="cuda")
+    batch = tr._batch(cfg0, model.cfg.vocab_size, np.random.default_rng(1),
+                      "cuda")
+    sgd = make_optimizer("sgd", cfg0.lr)
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    def profile_step(fn, rec):
+        """One more step (warm: the run took the same shapes) under the
+        profiler, its outputs dropped; the device's busy ms also over the
+        run's median unprofiled step (the profiler slows the host)."""
+        _, wall, by_name = device_profile(fn)
+        out = busy_record(wall, by_name)
+        if by_name:
+            out["busy_share_of_unprofiled_step"] = (
+                out["device_busy_ms"] / 1e3
+                / float(np.median(rec["later_steps_s"])))
+        print(f"[profile train step] {json.dumps(out)}")
+        return out
+
+    res, rec, counts = train_run(kern, zero, "dense sgd", 0,
+                                 steps=TRAIN_STEPS)
+    add(counts)
+    items = eng.tree_items(res["params"])
+    n_params = sum(p.numel() for _, p in items)
+    big = sum(1 for _, p in items if p.numel() >= TRAIN_MIN_LEAF)
+    step = gs.make_train_step(model, sgd)
+    rec["profile"] = profile_step(lambda: step(res["params"], (), batch),
+                                  rec)
+    runs["dense sgd"] = rec
+    del res, items
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = f"bcrs_opwa {TRAIN_PODS} pods"
+    res, rec, counts = train_run(kern, zero, label, big * TRAIN_STEPS,
+                                 steps=TRAIN_STEPS,
+                                 compressed_pods=TRAIN_PODS)
+    add(counts)
+    params, state = res["params"], res["opt_state"]
+    check_ef(label, state["ef"], embed_kept_whole=True)
+    crs = torch.from_numpy(np.asarray(res["pod_crs"], np.float32)).cuda()
+    coeffs = torch.full((TRAIN_PODS,), 1.0 / TRAIN_PODS, device="cuda")
+    step = gs.make_compressed_train_step(
+        model, sgd, n_pods=TRAIN_PODS, wire_cr=cfg0.wire_cr, gamma=tr.GAMMA)
+    rec["profile"] = profile_step(lambda: step(params, state, batch, crs,
+                                               coeffs), rec)
+    runs[label] = rec
+    train_routes(model, params, state["ef"], batch, res["pod_crs"], rec)
+    del res, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = {}
+    train_wire_cr_one(model, params, batch, checks)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    adamw = make_optimizer("adamw", cfg0.lr)
+    for label, merges, kw in (
+            ("dense adamw", 0, dict(optimizer="adamw")),
+            (f"adamw {TRAIN_ADAMW_PODS} pods", big * 2,
+             dict(optimizer="adamw", compressed_pods=TRAIN_ADAMW_PODS))):
+        res, rec, counts = train_run(kern, zero, label, merges, steps=2,
+                                     **kw)
+        add(counts)
+        params, state = res["params"], res["opt_state"]
+        if "compressed_pods" in kw:
+            c = kw["compressed_pods"]
+            step = gs.make_compressed_train_step(
+                model, adamw, n_pods=c, wire_cr=cfg0.wire_cr,
+                gamma=tr.GAMMA)
+            crs = torch.from_numpy(np.asarray(res["pod_crs"],
+                                              np.float32)).cuda()
+            w = torch.full((c,), 1.0 / c, device="cuda")
+            rec["profile"] = profile_step(
+                lambda: step(params, state, batch, crs, w), rec)
+        else:
+            step = gs.make_train_step(model, adamw)
+            rec["profile"] = profile_step(lambda: step(params, state, batch),
+                                          rec)
+        runs[label] = rec
+        del res, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # qtopk at 4 pods (fused_merge's int8 codec stage): 2 steps driven,
+    # then one profiled
+    label = f"qtopk {TRAIN_PODS} pods"
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg0.seed)
+    state = gs.init_compressed_state(sgd, params, n_pods=TRAIN_PODS)
+    step = gs.make_compressed_train_step(
+        model, sgd, n_pods=TRAIN_PODS, wire_cr=cfg0.wire_cr, gamma=tr.GAMMA,
+        strategy="qtopk")
+    crs = torch.full((TRAIN_PODS,), cfg0.wire_cr, device="cuda")
+    events, walls, losses = [], [], []
+
+    def qtopk_steps():
+        nonlocal params, state
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, crs, coeffs)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+    merge = gs.compress_merge_leaf
+    gs.compress_merge_leaf = timed_merge(merge, events)
+    try:
+        _, counts = drive(kern, qtopk_steps)
+    finally:
+        gs.compress_merge_leaf = merge
+    add(counts)
+    check_counts(counts, dict(zero, threshold_find=2 * big,
+                              fused_merge=2 * big), f"train {label}")
+    check(all(math.isfinite(v) for v in losses),
+          f"train {label}: finite losses {losses}")
+    check_ef("qtopk", state["ef"], embed_kept_whole=False)
+    merge_ms = [sum(s.elapsed_time(e) for s, e in events[i * big:
+                                                         (i + 1) * big])
+                for i in range(2)]
+    rec = dict(losses=losses, wall_per_step_s=walls, first_step_s=walls[0],
+               later_steps_s=walls[1:], merge_ms_per_step=merge_ms,
+               merge_share=[m / 1e3 / t for m, t in zip(merge_ms, walls)],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=counts)
+    rec["profile"] = profile_step(
+        lambda: step(params, state, batch, crs, coeffs), rec)
+    runs[label] = rec
+    print(f"[train] {label}: losses {losses}; wall a step (s) {walls}; "
+          f"merge {[round(m, 2) for m in merge_ms]} ms a step; peak "
+          f"{rec['peak_memory_bytes'] / 1e9:.2f} GB")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_restarts_reduced()
+    record["train_phase"] = dict(
+        model=cfg0.arch, parameters=n_params, compressed_leaves=big,
+        runs=runs, checks=checks,
+        seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v},
+        restart="reduced() size, bit for bit")
+    print(f"[train phase] {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{record['train_phase']['launches']}")
+    return total
 
 
 # ------------------------------------------------------ reference check
@@ -3008,6 +3430,9 @@ def main() -> int:
     for name, err in fl_worst.items():
         worst[name] = max(worst[name], err)
     record["timings"] += fl_rows
+    train_launches = train_phase(kern, {name: 0 for name in kern}, record)
+    for name, n in train_launches.items():
+        launches[name] += n
     if args.profile:
         from repro_torch.core.aggregation import AggregationConfig
         record["profile"] = profile_path(
@@ -3054,6 +3479,8 @@ def main() -> int:
             extra["scan_phase_launches"] = scan_launches[name]
         if pop_launches[name]:
             extra["population_async_phase_launches"] = pop_launches[name]
+        if train_launches[name]:
+            extra["train_phase_launches"] = train_launches[name]
         if fl_launches[name]:
             extra["fl_train_phase_launches"] = fl_launches[name]
             # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import compression as comp
 from repro_torch.core import opwa as opwa_mod
 from repro_torch.core import strategies as strat_mod
+from repro_torch.tree import tree_from_items, tree_items
 
 #: ("sim_scan" | "pop_scan", strategy, with_overlap) -> simulations built by
 #: ``make_sim_scan``: one a simulation, however many rounds it runs (the
@@ -638,26 +639,6 @@ def make_sim_scan(loss_fn: Callable, params_template, *, lr: float,
 
 
 # ------------------------------------------------------- per-leaf (models)
-def tree_items(tree, prefix=()):
-    """Leaves of a nested dict as ``[(path, tensor)]`` in sorted-key order,
-    the order ``jax.tree.flatten`` gives a dict."""
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in tree_items(tree[k], prefix + (k,))]
-    return [(prefix, tree)]
-
-
-def tree_from_items(items):
-    """``[(path, leaf)]`` -> the nested dict they came from."""
-    out: Dict = {}
-    for path, leaf in items:
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
-
-
 def make_model_local_trainer(loss_fn: Callable, lr: float,
                              skip_masked: bool = True):
     """``local_train(params, batches, step_mask) -> (deltas, losses)``: the

@@ -585,3 +585,71 @@ def test_fl_train_round_engine_reduced_on_the_card(card, tmp_path):
         for (_, a), (_, b) in zip(tree_items(full[key]),
                                   tree_items(resumed[key])):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ------------------------------------------------ centralised training
+@pytest.mark.parametrize("n_pods", [2, 4])
+def test_compressed_train_step_kernel_route(card, n_pods):
+    """``make_compressed_train_step`` at ``reduced()`` size on the card:
+    each leaf of at least 4096 elements launches ``threshold_find`` and
+    ``fused_merge`` once; its ``[n_pods, leaf]`` pod gradients through
+    the kernel and the plain route of ``compress_merge_leaf`` select the
+    same elements (EF residuals bit for bit) and merge within the
+    client-sum bound ``2*C*2^-24*gamma*sum|w v|``; the whole step by both
+    routes gives the same EF residuals bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compression as comp
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.fed.engine import compress_merge_leaf, tree_items
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    model = Model(get_config("stablelm-1.6b").reduced(), device=card)
+    params = model.init(0)
+    g = torch.Generator(device=card).manual_seed(5)
+    toks = torch.randint(0, model.cfg.vocab_size, (4, 33), device=card,
+                         generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    crs = torch.linspace(0.05, 0.02, n_pods, device=card)
+    w = torch.full((n_pods,), 1.0 / n_pods, device=card)
+    pods, _, _ = gs.pod_gradients(model.loss_fn, params, batch, n_pods)
+    compressed = 0
+    for (_, p), u in zip(tree_items(params), pods):
+        n = p.numel()
+        if n < 4096:
+            continue
+        compressed += 1
+        u2 = u.reshape(n_pods, n)
+        res = 0.1 * torch.randn(u2.shape, device=card, generator=g)
+        ks = comp.k_for_ratio_traced(n, crs)
+        kw = dict(gamma=2.0, opwa=True, residuals=res)
+        tf.threshold_find.launches = fm.fused_merge.launches = 0
+        agg_k, res_k = compress_merge_leaf(u2, w, ks, use_kernel="auto",
+                                           **kw)
+        assert tf.threshold_find.launches == fm.fused_merge.launches == 1
+        agg_p, res_p = compress_merge_leaf(u2, w, ks, use_kernel=False,
+                                           **kw)
+        assert torch.equal(res_k.view(torch.int32), res_p.view(torch.int32))
+        x = u2 + res
+        vals = torch.where(comp.topk_compress_dynamic(x, ks).mask, x, 0.0)
+        bound = 2 * n_pods * 2.0 ** -24 * 2.0 * (
+            w[:, None].double() * vals.double()).abs().sum(0)
+        assert bool(((agg_k.double() - agg_p.double()).abs()
+                     <= bound).all())
+    assert compressed >= 8
+    opt = make_optimizer("sgd", 1e-2)
+    out = {}
+    for route in ("auto", False):
+        step = gs.make_compressed_train_step(model, opt, n_pods=n_pods,
+                                             wire_cr=0.05, gamma=2.0,
+                                             use_kernel=route)
+        state = gs.init_compressed_state(opt, params, n_pods=n_pods)
+        tf.threshold_find.launches = fm.fused_merge.launches = 0
+        _, state, m = step(params, state, batch, crs, w)
+        launched = (tf.threshold_find.launches, fm.fused_merge.launches)
+        assert launched == ((compressed, compressed) if route == "auto"
+                            else (0, 0))
+        assert math.isfinite(float(m["loss"]))
+        out[route] = state["ef"]
+    for (_, a), (_, b) in zip(tree_items(out["auto"]),
+                              tree_items(out[False])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
