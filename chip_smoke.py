@@ -126,12 +126,22 @@
    counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
-10. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+10. the recurrent serve phase (hymba-1.5b and rwkv6-1.6b at full width,
+   bf16, random weights from a seed; none of the kernels runs there):
+   ``launch.serve.generate`` as in 9, launches counted (zero), prefill
+   against the stepped decode at each family's count of roundings, decode
+   ms a step beside its byte bound (weights, KV cache, the recurrent state
+   read and written), peak memory; ``Model.prefill`` at 2048 tokens;
+   ``chunked_gla`` over 4 chunks of layer 0's own inputs (hymba: scalar,
+   inclusive, 50 heads, Dk 16, Dv 64; rwkv6: per-channel decay and bonus,
+   32 heads of 64) against ``reference_recurrence`` within
+   ``gla.summation_bound``;
+11. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path, of the population engine and 3 flushes of the async engine
    (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
-   parts: forward, backward, update) and 3 decode steps of the serve path
-   (device time by kernel, idle share), and the row kernels' device time
-   a call at the main shape.
+   parts: forward, backward, update) and 3 decode steps of each serve path
+   (stablelm, hymba, rwkv6: device time by kernel, idle share), and the
+   row kernels' device time a call at the main shape.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -2892,14 +2902,39 @@ PROMPT, GEN = 128, 32         # the serve path's prompt and generated tokens
 #: logits' rms; the largest of B * V (4e5) such differences stays below
 #: Z = 6 of those (a normal exceeds 6 sigma with probability 2e-9).
 LOGIT_R, LOGIT_Z = 17, 6.0
+#: R for each family, counted the same way (tests/test_torch_models.py's
+#: PREFILL_ROUNDINGS holds the same counts). hybrid 35: the dense 17; the
+#: SSM branch's in_proj, its prefill conv (4 tap products, 3 partial sums,
+#: the bias add, silu: 9 roundings that decode does in f32 and rounds
+#: once), the f32 output's cast, silu(z), the gated product, its rms_norm,
+#: out_proj (15); the two output norms and their sum (3). ssm 48: time-mix
+#: 35 (ln1, shift - x, the mu_x product and sum, maa_w1, tanh, maa_w2, five
+#: lerps of three roundings each, the decay LoRA's two products and tanh,
+#: r, k, v, g, silu, the wkv output's cast, the group norm, the gated
+#: product, wo, the residual add) and channel-mix 13 (ln2, shift - x, the
+#: two lerps' products and sums, wk, the square, wv, wr, sigmoid, the
+#: product, the residual add). The f32 work between them (the chunked GLA
+#: against the recurrence) is ~2^-16 below a bf16 rounding.
+#: The gain ~1 of the dense count does not hold for these two at random
+#: init: a relative perturbation of rwkv6's first layers reaches the
+#: logits amplified up to ~60x (G_0 = 62 on an H100, seed 0). So each
+#: layer's R roundings are carried by that layer's measured gain G_l
+#: (``launch.serve.logit_gains``: f32 forwards with layer l's output
+#: perturbed), and sqrt(L * R) becomes sqrt(R * sum G_l^2) (the same
+#: where every G_l is 1). The dense bound keeps its form; its gains are
+#: recorded beside it.
+LOGIT_ROUNDINGS = {"dense": LOGIT_R, "hybrid": 35, "ssm": 48}
 
 
-def logit_tolerance(n_layers: int, logits: torch.Tensor) -> float:
-    """Z * 2^-8 * sqrt(L * R) * rms(logits): the prefill-vs-decode bound
-    (tests/test_torch_models.py holds a 4-layer bf16 model on the CPU to
-    the same formula)."""
+def logit_tolerance(n_layers: int, logits: torch.Tensor,
+                    r: int = LOGIT_R, gains=None) -> float:
+    """Z * 2^-8 * sqrt(L * R) * rms(logits), or with the layers' measured
+    ``gains`` Z * 2^-8 * sqrt(R * sum G_l^2) * rms(logits): the
+    prefill-vs-decode bound (tests/test_torch_models.py holds 4-layer bf16
+    models on the CPU to the same formulas)."""
     rms = float(logits.float().pow(2).mean().sqrt())
-    return LOGIT_Z * 2.0 ** -8 * math.sqrt(n_layers * LOGIT_R) * rms
+    spread = n_layers if gains is None else sum(g * g for g in gains)
+    return LOGIT_Z * 2.0 ** -8 * math.sqrt(spread * r) * rms
 
 
 #: flash kernel against twin: (label, B, Sq, Sk, H, Hkv, D, dtype, causal)
@@ -3231,93 +3266,130 @@ def flash_entry_point(kern, zero, model, params, record):
     return counts
 
 
+def nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes(t) for t in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 def decode_bound_ms(model, params, batch, positions):
     """Bytes a decode step must move at cache length ``positions`` (mean
     over the timed steps), over the HBM rate: every weight but the
     embedding table (of which B rows), the K and V cache up to the
-    position, the new K/V entries and the logits."""
+    position (each layer's window at most) and the new K/V entries, the
+    recurrent state (hymba's conv history and SSM state, rwkv's token
+    shifts and wkv state), read once and written once, and the logits.
+    Returns (ms, total bytes, state bytes)."""
     cfg = model.cfg
-
-    def nbytes(tree):
-        if isinstance(tree, dict):
-            return sum(nbytes(t) for t in tree.values())
-        return tree.numel() * tree.element_size()
-
     emb = params["embed"]["w"]
     weights = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * \
         emb.element_size()
-    kv_entry = 2 * cfg.n_layers * batch * cfg.n_kv_heads * \
-        cfg.resolved_head_dim * 2                       # bf16 K and V
-    total = weights + kv_entry * (positions + 1) + batch * model.v_pad * 2
-    return total / HBM_BYTES_PER_S * 1e3, total
+    kv = 0
+    if cfg.family != "ssm":
+        entry = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+        wins = model._window_flags() or [positions + 1] * cfg.n_layers
+        kv = sum(entry * min(positions + 1, w) for w in wins)
+    one = model.init_cache(batch, 1)
+    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v") if k in one)
+    del one
+    total = weights + kv + 2 * state + batch * model.v_pad * 2
+    return total / HBM_BYTES_PER_S * 1e3, total, state
 
 
-def serve_path(kern, zero, model, params, record):
+def timed_prefill(kern, zero, model, params, prompt):
+    """``Model.prefill`` once to warm, then once timed (host clock ending
+    in a synchronize), the launch counters reset just before and read just
+    after both (zero: no kernel on this path). Returns (logits, cache, ms)."""
+    def run():
+        with torch.no_grad():
+            model.prefill(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pf, cache = model.prefill(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            return pf, cache, (time.perf_counter() - t0) * 1e3
+
+    out, counts = drive(kern, run)
+    check_counts(counts, zero, f"{model.cfg.name} prefill")
+    return out
+
+
+def serve_path(kern, zero, model, params, record, key="serve"):
     """``launch.serve.generate`` at full width: a 128-token prompt stepped
     through ``decode_step`` at B = 4, then 32 greedy tokens, with the launch
     counters reset just before and read just after (this path runs none of
-    the port's kernels: attention is ``attend`` / ``decode_attend``, as in
-    the reference); ``Model.prefill`` over the same prompt against the
-    decode logits after the last prompt token."""
-    from repro_torch.launch.serve import generate
+    the port's kernels: attention is ``attend`` / ``decode_attend`` and
+    GLA plain torch, as in the reference); ``Model.prefill`` over the same
+    prompt against the decode logits after the last prompt token, within
+    ``logit_tolerance`` at the family's R."""
+    from repro_torch.launch.serve import generate, logit_gains
     cfg = model.cfg
+    r = LOGIT_ROUNDINGS[cfg.family]
     prompt = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (SERVE_BATCH, PROMPT)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     res, counts = drive(kern, lambda: generate(model, params, prompt, GEN))
-    check_counts(counts, zero, "serve path")
-    check(res["tokens"].shape == (SERVE_BATCH, GEN), "serve: tokens shape")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts(counts, zero, f"{cfg.name} serve path")
+    check(res["tokens"].shape == (SERVE_BATCH, GEN),
+          f"{cfg.name} serve: tokens shape")
     check(bool(torch.isfinite(res["logits"]).all())
           and bool(torch.isfinite(res["prompt_logits"]).all()),
-          "serve: finite logits")
-    with torch.no_grad():
-        model.prefill(params, {"tokens": prompt})       # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pf, cache = model.prefill(params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-    check(cache is None, "prefill returns no cache (dense, as the reference)")
+          f"{cfg.name} serve: finite logits")
+    pf, cache, prefill_ms = timed_prefill(kern, zero, model, params, prompt)
+    check(cache is None, "prefill returns no cache (as the reference)")
     dec = res["prompt_logits"][:, :cfg.vocab_size].float()
     pre = pf[:, :cfg.vocab_size].float()
-    tol = logit_tolerance(cfg.n_layers, dec)
+    gains = logit_gains(model, params, prompt)
+    torch.cuda.empty_cache()
+    tol = logit_tolerance(cfg.n_layers, dec, r,
+                          None if cfg.family == "dense" else gains)
+    formula = (f"6 * 2^-8 * sqrt(L * {r}) * rms(logits)"
+               if cfg.family == "dense" else
+               f"6 * 2^-8 * sqrt({r} * sum G_l^2) * rms(logits)")
     diff = float((pre - dec).abs().max())
-    check(diff <= tol, f"prefill vs decode logits: max |d| {diff:.4g} > "
-                       f"{tol:.4g}")
+    check(diff <= tol, f"{cfg.name} prefill vs decode logits: max |d| "
+                       f"{diff:.4g} > {tol:.4g}")
     top2 = dec.topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     same = dec.argmax(-1) == pre.argmax(-1)
     # each logit may move by tol, so a pair can swap only within 2 * tol
     check(bool(same[margin > 2 * tol].all()),
-          "prefill vs decode: argmax agrees where the top-2 margin exceeds "
-          "2 * tol")
+          f"{cfg.name} prefill vs decode: argmax agrees where the top-2 "
+          "margin exceeds 2 * tol")
     step_ms = res["t_gen"] / (GEN - 1) * 1e3
-    bound_ms, step_bytes = decode_bound_ms(model, params, SERVE_BATCH,
-                                           PROMPT + GEN // 2)
+    bound_ms, step_bytes, state_bytes = decode_bound_ms(
+        model, params, SERVE_BATCH, PROMPT + GEN // 2)
     out = dict(
-        arch=SERVE_ARCH, batch=SERVE_BATCH, prompt=PROMPT, gen=GEN,
+        arch=cfg.name, batch=SERVE_BATCH, prompt=PROMPT, gen=GEN,
         n_params=cfg.n_params(), launches=counts,
         stepped_prefill_ms=res["t_prefill"] * 1e3,
         stepped_prefill_ms_per_token=res["t_prefill"] * 1e3 / PROMPT,
         prefill_forward_ms=prefill_ms, decode_ms_per_step=step_ms,
         tokens_per_s=SERVE_BATCH * GEN / res["t_gen"],
         decode_bound_ms=bound_ms, decode_step_bytes=step_bytes,
+        recurrent_state_bytes=state_bytes, peak_gb_generate=peak_gb,
         prefill_vs_decode_max_abs=diff, logit_tol=tol,
-        logit_tol_formula="6 * 2^-8 * sqrt(L * 17) * rms(logits)",
+        logit_tol_formula=formula, logit_gains=gains,
+        logit_gain_rms=math.sqrt(sum(g * g for g in gains) / len(gains)),
         argmax_agree=same.tolist(), top2_margin=margin.tolist(),
         sample_tokens=res["tokens"][0, :16].tolist())
-    print(f"[serve] {SERVE_ARCH} B={SERVE_BATCH}: stepped prefill "
+    print(f"[{key}] {cfg.name} B={SERVE_BATCH}: stepped prefill "
           f"{PROMPT} tok {out['stepped_prefill_ms']:.1f} ms, "
           f"Model.prefill {prefill_ms:.2f} ms, decode "
           f"{step_ms:.3f} ms a step (bound {bound_ms:.3f} ms, "
           f"{step_bytes / 1e9:.3f} GB), {out['tokens_per_s']:.1f} tok/s; "
-          f"prefill vs decode max |d| {diff:.4g} (tol {tol:.4g})")
-    record["serve"] = out
+          f"peak {peak_gb:.2f} GB; prefill vs decode max |d| {diff:.4g} "
+          f"(tol {tol:.4g}: {formula}; rms G_l "
+          f"{out['logit_gain_rms']:.3g})")
+    record[key] = out
     return out
 
 
 def profile_decode(model, params):
     """3 decode steps at B = 4 (cache of 160, position 128) under the
-    profiler: device time by kernel and the idle share."""
+    profiler: device time by kernel, the idle share and the launches a
+    step (from a fresh cache: the recurrent families' states are zeros)."""
     cache = model.init_cache(SERVE_BATCH, PROMPT + GEN)
     toks = torch.zeros(SERVE_BATCH, dtype=torch.long, device="cuda")
 
@@ -3356,13 +3428,138 @@ def serve_phase(kern, zero, record, profile):
     return worst, worst_wg, rows, counts
 
 
+# ------------------------------------------------- recurrent serve phase
+RECURRENT_ARCHS = ("hymba-1.5b", "rwkv6-1.6b")
+LONG_PROMPT = 2048            # Model.prefill timed again: hymba's window of
+                              # 1024 bites in 29 of its 32 layers
+GLA_CHUNKS = 4                # chunked_gla vs reference_recurrence, B = 1
+
+
+def layer0_gla_inputs(model, params, seq):
+    """Layer 0's chunked-GLA inputs for a random ``seq``-token prompt at
+    B = 1, as prefill builds them (``mamba.ssd_inputs``: scalar decay,
+    inclusive; ``rwkv6.wkv_inputs``: per-channel decay and the bonus u).
+    Returns (r, k, v, g, u, inclusive)."""
+    from repro_torch.models import mamba, rwkv6
+    from repro_torch.models.layers import embed_lookup, layer_norm, rms_norm
+    from repro_torch.models.transformer import layer_params
+    cfg = model.cfg
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, seq)), device="cuda")
+    p0 = layer_params(params["layers"], 0)
+    with torch.no_grad():
+        x = embed_lookup(params["embed"]["w"], tokens)
+        if cfg.family == "ssm":
+            x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+            h = layer_norm(x, p0["ln1_s"], p0["ln1_b"], cfg.norm_eps)
+            r, k, v, g, u, _ = rwkv6.wkv_inputs(
+                p0["tm"], h, n_heads=cfg.n_heads, rwkv_cfg=cfg.rwkv)
+            return r, k, v, g, u, False
+        h = rms_norm(x, p0["ln1"], cfg.norm_eps)
+        q, k, v, g, _, _ = mamba.ssd_inputs(p0["ssm"], h,
+                                            d_model=cfg.d_model,
+                                            ssm_cfg=cfg.ssm)
+        return q, k, v, g, None, True
+
+
+def gla_against_recurrence(model, params):
+    """``chunked_gla`` over 4 chunks on layer 0's own inputs against the
+    port's ``reference_recurrence`` on the card (the carry across chunks,
+    which a 128-token prompt does not reach), outputs and final state within
+    ``gla.summation_bound``: (c + Dk + 8) * 2^-24 * A, A the recurrence in
+    f64 on the magnitudes, the bound the CPU tests hold both packages to.
+    Both timed (CUDA events)."""
+    from repro_torch.models import gla
+    chunk = (model.cfg.rwkv or model.cfg.ssm).chunk
+    r, k, v, g, u, inclusive = layer0_gla_inputs(model, params,
+                                                 GLA_CHUNKS * chunk)
+    kw = dict(u=u, inclusive=inclusive)
+
+    def over(got, want, bound):
+        """max |got - want| / bound (inf where a zero bound is exceeded)."""
+        d = (got.double() - want.double()).abs()
+        return float(torch.where(bound > 0, d / bound,
+                                 torch.where(d > 0, math.inf, 0.0)).max())
+
+    with torch.no_grad():
+        o, s = gla.chunked_gla(r, k, v, g, chunk=chunk, **kw)
+        o_r, s_r = gla.reference_recurrence(r, k, v, g, **kw)
+        bo, bs = gla.summation_bound(r, k, v, g, chunk=chunk, **kw)
+        ratio_o, ratio_s = over(o, o_r, bo), over(s, s_r, bs)
+        ms = time_ms(lambda: gla.chunked_gla(r, k, v, g, chunk=chunk, **kw),
+                     reps=5)
+        rec_ms = time_ms(lambda: gla.reference_recurrence(r, k, v, g, **kw),
+                         reps=2, warmup=1)
+    name = model.cfg.name
+    check(bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all()),
+          f"{name} chunked_gla: finite")
+    check(ratio_o <= 1.0 and ratio_s <= 1.0,
+          f"{name} chunked_gla vs reference_recurrence: |d| / bound "
+          f"{ratio_o:.3g} (outputs), {ratio_s:.3g} (state)")
+    out = dict(shape=dict(r=list(r.shape), v=list(v.shape), g=list(g.shape)),
+               chunk=chunk, inclusive=inclusive, bonus=u is not None,
+               max_over_bound_o=ratio_o, max_over_bound_state=ratio_s,
+               bound="(c + Dk + 8) * 2^-24 * A", chunked_ms=ms,
+               recurrence_ms=rec_ms)
+    print(f"[gla] {name} {list(r.shape)} -> {list(v.shape)}: chunked vs "
+          f"recurrence |d| / bound {ratio_o:.3g} / {ratio_s:.3g} (o / "
+          f"state); chunked {ms:.3f} ms, stepped {rec_ms:.1f} ms")
+    return out
+
+
+def recurrent_serve_phase(kern, zero, record, profile):
+    """The hybrid (hymba-1.5b) and ssm (rwkv6-1.6b) families at full width,
+    bf16, random weights from seed 0: ``serve_path`` (generate at B = 4, a
+    128-token prompt, 32 greedy tokens, zero launches; prefill against the
+    stepped decode at the family's R; decode ms, tok/s, the byte bound with
+    the recurrent state, peak memory), ``Model.prefill`` at 2048 tokens
+    (zero launches, finite, timed, peak memory), the parameter count of the
+    tree beside ``cfg.n_params()``, ``gla_against_recurrence`` and, with
+    ``profile``, 3 decode steps under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    for arch in RECURRENT_ARCHS:
+        torch.cuda.empty_cache()
+        model = Model(get_config(arch), device="cuda")
+        params = model.init(0)
+        key = "serve_" + arch
+        out = serve_path(kern, zero, model, params, record, key)
+        out["n_params_tree"] = sum(t.numel() for t in tree_leaves(params))
+        prompt = torch.as_tensor(np.random.default_rng(4).integers(
+            0, model.cfg.vocab_size, (SERVE_BATCH, LONG_PROMPT)),
+            device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        pf, _, ms = timed_prefill(kern, zero, model, params, prompt)
+        check(tuple(pf.shape) == (SERVE_BATCH, model.v_pad)
+              and bool(torch.isfinite(pf).all()),
+              f"{arch} prefill at {LONG_PROMPT}: finite logits")
+        out.update(prefill_forward_ms_long=ms, long_prompt=LONG_PROMPT,
+                   peak_gb_prefill_long=torch.cuda.max_memory_allocated()
+                   / 1e9)
+        out["gla"] = gla_against_recurrence(model, params)
+        print(f"[{key}] n_params {out['n_params']} (config), "
+              f"{out['n_params_tree']} (tree); Model.prefill at "
+              f"{LONG_PROMPT} tokens {ms:.1f} ms, peak "
+              f"{out['peak_gb_prefill_long']:.2f} GB")
+        if profile:
+            out["profile_decode"] = profile_decode(model, params)
+            print(f"[profile decode {arch}]",
+                  json.dumps(out["profile_decode"]))
+        del model, params, pf
+    torch.cuda.empty_cache()
+    record["recurrent_serve_phase_s"] = time.perf_counter() - t0
+    print(f"[recurrent serve phase] {record['recurrent_serve_phase_s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3 rounds of the fused, legacy and "
                          "population paths, 3 async flushes, one full-width "
-                         "fl_train step, 3 decode steps of the serve path "
+                         "fl_train step, 3 decode steps of each serve path "
                          "and the row kernels at the main shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3454,6 +3651,8 @@ def main() -> int:
     worst["flash_attention_wgmma"] = wgmma_worst
     for name, n in flash_counts.items():
         launches[name] += n
+    recurrent_serve_phase(kern, {name: 0 for name in kern}, record,
+                          args.profile)
     check(all(n > 0 for n in launches.values()),
           f"every kernel launched on its path: {launches}")
 

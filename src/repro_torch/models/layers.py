@@ -1,7 +1,7 @@
-"""Core layers of the dense model: norms, MLP, embedding, RoPE, the loss.
+"""Core layers: norms, MLP, embedding, RoPE, the loss.
 
-Port of what the dense forward, decode and training need from
-``repro.models.layers``. Params are plain nested dicts of tensors;
+Port of what the dense, hybrid and ssm families' forward, decode and
+training need from ``repro.models.layers``. Params are plain nested dicts of tensors;
 layer-stacked groups carry a leading ``[L, ...]`` axis that the model walks
 with a Python loop. Initialisers draw from an explicit ``torch.Generator``
 and put the tensors on that generator's device.
@@ -38,6 +38,29 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32, cast back to ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     n_heads: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over each head's channels (RWKV's wkv output norm), in f32,
+    cast back to ``x``'s dtype. x: [..., C]."""
+    shp = x.shape
+    xh = x.reshape(shp[:-1] + (n_heads, shp[-1] // n_heads)).float()
+    mu = torch.mean(xh, dim=-1, keepdim=True)
+    var = torch.mean((xh - mu) ** 2, dim=-1, keepdim=True)
+    xh = (xh - mu) * torch.rsqrt(var + eps)
+    out = xh.reshape(shp) * scale.float() + bias.float()
+    return out.to(x.dtype)
 
 
 # ----------------------------------------------------------------- matmul

@@ -1,15 +1,24 @@
-"""The dense decoder-only model: init, the training loss, prefill and
-KV-cache decode.
+"""Decoder-only models: init, the training loss, prefill and cached decode.
 
-Port of the dense family of ``repro.models.transformer.Model`` (stablelm,
-yi, qwen: MHA or GQA, optional QKV bias). Params are nested dicts whose
-layer stack carries a leading ``[L, ...]`` axis; the forward walks it with
-a Python loop (no remat at inference). The KV cache is ``{"k", "v"}`` of
-``[L, B, S, Hkv, D]``, written in place by ``decode_step``.
+Port of ``repro.models.transformer.Model`` for three families:
+  * dense (stablelm, yi, qwen: MHA or GQA, optional QKV bias): init,
+    ``loss_fn``, ``prefill`` and KV-cache decode;
+  * hybrid (hymba: GQA sliding-window attention and a parallel SSD branch,
+    mixed as ``0.5 * (rms_norm(a) + rms_norm(s))``) and ssm (rwkv6:
+    time-mix and channel-mix blocks behind a layer norm): serving only
+    (``init``, ``init_cache``, ``decode_step``, ``prefill``); their
+    ``loss_fn`` raises until their training is ported (ROADMAP queue 1,
+    item 3a).
+Params are nested dicts whose layer stack carries a leading ``[L, ...]``
+axis; the forward walks it with a Python loop (no remat at inference). The
+caches are stacked ``[L, ...]`` too and written in place by
+``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``, for hybrid also
+``"ssm": {"conv", "state"}``, for ssm ``{"tm_x", "cm_x", "wkv"}``.
 
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
-in the reference. Other families wait for their ROADMAP item (queue 1,
-item 3) and raise ``NotImplementedError`` when the model is built.
+in the reference. The moe, encdec and vlm families wait for their ROADMAP
+item (queue 1, item 3) and raise ``NotImplementedError`` when the model is
+built.
 """
 from __future__ import annotations
 
@@ -20,10 +29,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba, rwkv6
 from repro_torch.models.layers import (_dtype, apply_mlp, cross_entropy,
                                        dense_init, embed_init, embed_lookup,
-                                       embed_onehot, init_mlp, pad_vocab,
-                                       rms_norm)
+                                       embed_onehot, init_mlp, layer_norm,
+                                       pad_vocab, rms_norm)
 
 Params = Dict[str, Any]
 
@@ -55,13 +65,24 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+#: the families the port runs, each with the config options it may set
+_PORTED = {"dense": (), "hybrid": ("ssm",), "ssm": ("rwkv",)}
+
+
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family != "dense":
+    if cfg.family not in _PORTED:
         return f"family {cfg.family!r}"
     for opt in ("mla", "moe", "ssm", "rwkv", "encdec", "vision"):
-        if getattr(cfg, opt) is not None:
+        if getattr(cfg, opt) is not None and opt not in _PORTED[cfg.family]:
             return f"option {opt!r}"
     return None
+
+
+def _zeros_stacked(n: int, tree):
+    """A per-layer cache tree -> fresh zeros of ``[n, ...]`` for each leaf
+    (its own storage per layer, so a layer's in-place write stays in it)."""
+    return {k: torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,
+                           device=v.device) for k, v in tree.items()}
 
 
 class Model:
@@ -70,8 +91,8 @@ class Model:
         if what is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet; the port runs the "
-                "dense family (ROADMAP queue 1, item 3: the moe, mla, "
-                "hybrid, ssm, encdec and vlm families)")
+                "dense, hybrid and ssm families (ROADMAP queue 1, item 3: "
+                "the moe, mla, encdec and vlm families)")
         self.cfg = cfg
         self.dtype = _dtype(cfg.dtype)
         self.v_pad = pad_vocab(cfg.vocab_size, 256)
@@ -86,29 +107,61 @@ class Model:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
         cfg = self.cfg
         d = cfg.d_model
-        return {
+        p = {
             "embed": {"w": embed_init(gen, (self.v_pad, d), self.dtype)},
-            "final_norm": torch.ones((d,), dtype=torch.float32,
-                                     device=self.device),
+            "final_norm": self._ones(),
             "lm_head": {"w": dense_init(gen, d, (d, self.v_pad), self.dtype)},
-            "layers": self._init_stack(gen, cfg.n_layers,
-                                       self._init_dense_block),
         }
+        if cfg.family == "ssm":
+            p["ln0_s"] = self._ones()
+            p["ln0_b"] = self._zeros()
+            # read by nothing; kept so that trees and checkpoints match
+            p["final_norm_b"] = self._zeros()
+            p["layers"] = self._init_stack(gen, cfg.n_layers,
+                                           self._init_rwkv_block)
+        else:  # dense / hybrid
+            p["layers"] = self._init_stack(gen, cfg.n_layers,
+                                           self._init_block)
+        return p
+
+    def _ones(self):
+        return torch.ones((self.cfg.d_model,), dtype=torch.float32,
+                          device=self.device)
+
+    def _zeros(self):
+        return torch.zeros((self.cfg.d_model,), dtype=torch.float32,
+                           device=self.device)
 
     def _init_stack(self, gen, n, init_one):
         return _stack([init_one(gen) for _ in range(n)])
 
     def _init_dense_block(self, gen):
         cfg = self.cfg
-        ones = lambda: torch.ones((cfg.d_model,), dtype=torch.float32,
-                                  device=self.device)
         return {"attn": attn.init_attention(
                     gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim, self.dtype, cfg.qkv_bias),
                 "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
                                 self.dtype),
-                "ln1": ones(),
-                "ln2": ones()}
+                "ln1": self._ones(),
+                "ln2": self._ones()}
+
+    def _init_block(self, gen):
+        cfg = self.cfg
+        p = self._init_dense_block(gen)
+        if cfg.ssm is not None:  # hymba hybrid: parallel SSM branch
+            p["ssm"] = mamba.init_ssm(gen, cfg.d_model, cfg.ssm, self.dtype)
+            p["attn_out_norm"] = self._ones()
+            p["ssm_out_norm"] = self._ones()
+        return p
+
+    def _init_rwkv_block(self, gen):
+        cfg = self.cfg
+        return {"tm": rwkv6.init_time_mix(gen, cfg.d_model, cfg.rwkv,
+                                          self.dtype),
+                "cm": rwkv6.init_channel_mix(gen, cfg.d_model, cfg.d_ff,
+                                             self.dtype),
+                "ln1_s": self._ones(), "ln1_b": self._zeros(),
+                "ln2_s": self._ones(), "ln2_b": self._zeros()}
 
     # ============================================================== forward
     def _window_flags(self) -> Optional[List[int]]:
@@ -125,19 +178,44 @@ class Model:
     def _block_fwd(self, p, x, positions, window=None, chunk=512):
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + attn.self_attention(p["attn"], h, cfg=cfg,
-                                    positions=positions, causal=True,
-                                    window=window, chunk=chunk)
+        a = attn.self_attention(p["attn"], h, cfg=cfg, positions=positions,
+                                causal=True, window=window, chunk=chunk)
+        if cfg.ssm is not None:
+            s = mamba.apply_ssm(p["ssm"], h, d_model=cfg.d_model,
+                                ssm_cfg=cfg.ssm)
+            x = x + 0.5 * (rms_norm(a, p["attn_out_norm"], cfg.norm_eps)
+                           + rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
+        else:
+            x = x + a
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + apply_mlp(p["mlp"], h2, cfg.act)
 
-    def _backbone(self, params, x, positions) -> torch.Tensor:
-        """Token embeddings -> final hidden states."""
+    def _rwkv_block_fwd(self, p, x):
+        cfg = self.cfg
+        h = layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
+        x = x + rwkv6.apply_time_mix(p["tm"], h, n_heads=cfg.n_heads,
+                                     rwkv_cfg=cfg.rwkv)
+        h = layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
+        return x + rwkv6.apply_channel_mix(p["cm"], h)
+
+    def _backbone(self, params, x, positions, after_layer=None
+                  ) -> torch.Tensor:
+        """Token embeddings -> final hidden states. ``after_layer(i, x)``,
+        when given, replaces each layer's output (a probe of how the
+        logits respond to a change there, ``launch.serve.logit_gains``)."""
+        cfg = self.cfg
+        layers = unstack_layers(params["layers"], cfg.n_layers)
+        if cfg.family == "ssm":
+            x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
         wins = self._window_flags()
-        layers = unstack_layers(params["layers"], self.cfg.n_layers)
         for i, p in enumerate(layers):
-            x = self._block_fwd(p, x, positions,
-                                None if wins is None else wins[i])
+            if cfg.family == "ssm":
+                x = self._rwkv_block_fwd(p, x)
+            else:
+                x = self._block_fwd(p, x, positions,
+                                    None if wins is None else wins[i])
+            if after_layer is not None:
+                x = after_layer(i, x)
         return x
 
     # ================================================================= losses
@@ -147,8 +225,14 @@ class Model:
         -> ``(loss, {"ce": ce})``, as the reference's dense ``loss_fn``
         (the MoE aux and MTP terms belong to families not ported yet). The
         embedding is the one-hot contraction (``layers.embed_onehot``), so
-        the gradient is the same from run to run on the card."""
+        the gradient is the same from run to run on the card. The hybrid
+        and ssm families raise: their training is not ported yet."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: loss_fn of the {cfg.family} family is not "
+                "ported yet; the port serves it (ROADMAP queue 1, item 3a: "
+                "training the hybrid and ssm families)")
         tokens, labels = batch["tokens"], batch["labels"]
         x = embed_onehot(params["embed"]["w"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
@@ -161,11 +245,22 @@ class Model:
     # ================================================================ caches
     def init_cache(self, batch: int, seq: int,
                    dtype=torch.bfloat16) -> Params:
+        """Zeroed caches, ``[L, ...]`` for every leaf. ``dtype`` is the K
+        and V caches'; the recurrent states are f32 whatever it is, and so
+        is hymba's conv history (the reference builds it with
+        ``init_ssm_cache``'s default dtype)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        L = cfg.n_layers
+        if cfg.family == "ssm":
+            return _zeros_stacked(L, rwkv6.init_rwkv_cache(
+                batch, cfg.d_model, cfg.n_heads, cfg.rwkv, self.device))
+        shape = (L, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        if cfg.family == "hybrid":
+            cache["ssm"] = _zeros_stacked(L, mamba.init_ssm_cache(
+                batch, cfg.d_model, cfg.ssm, device=self.device))
+        return cache
 
     # ================================================================= decode
     def decode_step(self, params, cache, tokens, pos
@@ -174,33 +269,61 @@ class Model:
         [B, v_pad] and the cache (written in place)."""
         cfg = self.cfg
         x = embed_lookup(params["embed"]["w"], tokens)       # [B, d]
-        x, cache = self._decode_dense(params, cache, x, pos)
+        if cfg.family == "ssm":
+            x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+            x, cache = self._decode_rwkv(params, cache, x)
+        else:
+            x, cache = self._decode_dense(params, cache, x, pos)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return h @ params["lm_head"]["w"], cache
 
-    def _decode_block(self, p, x, kc, vc, pos, window):
+    def _decode_block(self, p, x, kc, vc, pos, window, ssm_cache=None):
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         a, kc, vc = attn.decode_self_attention(p["attn"], h, kc, vc, pos,
                                                cfg=cfg, window=window)
-        x = x + a
+        if ssm_cache is not None:
+            s, _ = mamba.decode_ssm(p["ssm"], h, ssm_cache,
+                                    d_model=cfg.d_model, ssm_cfg=cfg.ssm)
+            x = x + 0.5 * (rms_norm(a, p["attn_out_norm"], cfg.norm_eps)
+                           + rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
+        else:
+            x = x + a
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + apply_mlp(p["mlp"], h2, cfg.act), kc, vc
 
     def _decode_dense(self, params, cache, x, pos):
+        """Dense and hybrid layers; every cache leaf's ``[i]`` is a view, so
+        each block writes the stacked caches in place."""
         wins = self._window_flags()
+        ssm = cache.get("ssm")
         for i in range(self.cfg.n_layers):
-            # cache["k"][i] is a view: the block writes the stacked cache
-            x, _, _ = self._decode_block(layer_params(params["layers"], i), x,
-                                         cache["k"][i], cache["v"][i], pos,
-                                         None if wins is None else wins[i])
+            x, _, _ = self._decode_block(
+                layer_params(params["layers"], i), x, cache["k"][i],
+                cache["v"][i], pos, None if wins is None else wins[i],
+                None if ssm is None else layer_params(ssm, i))
+        return x, cache
+
+    def _decode_rwkv(self, params, cache, x):
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            p, c = layer_params(params["layers"], i), layer_params(cache, i)
+            h = layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
+            tm_out, _ = rwkv6.decode_time_mix(p["tm"], h, c,
+                                              n_heads=cfg.n_heads,
+                                              rwkv_cfg=cfg.rwkv)
+            x = x + tm_out
+            h = layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
+            cm_out, _ = rwkv6.decode_channel_mix(p["cm"], h, c)
+            x = x + cm_out
         return x, cache
 
     # ================================================================ prefill
     def prefill(self, params, batch) -> Tuple[torch.Tensor, None]:
         """Forward over the prompt ``batch["tokens"]`` [B, S], returning the
-        last-token logits [B, v_pad] and no cache, as the reference's dense
-        prefill does."""
+        last-token logits [B, v_pad] and no cache, as the reference's
+        prefill does. The recurrent families need S to be a multiple of
+        their GLA chunk (the reference asserts it; nothing is padded)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_lookup(params["embed"]["w"], tokens)

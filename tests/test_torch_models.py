@@ -24,8 +24,16 @@ n-term sum (n <= 256 here, so ~1e-6):
     sides are then fed the reference's token, so a tie cannot derail the
     rest of the sequence;
   * bf16 ``prefill`` against the stepped decode, within one package: the
-    rounding-count bound ``6 * 2^-8 * sqrt(L * 17) * rms(logits)`` that
-    ``chip_smoke.py`` holds stablelm-1.6b to at full width.
+    rounding-count bound ``6 * 2^-8 * sqrt(L * R) * rms(logits)`` that
+    ``chip_smoke.py`` holds the full-width models to, with R the bf16
+    roundings a layer at which the two paths may land on neighbouring
+    values: 17 for the dense family, 35 for hybrid, 48 for ssm (counted at
+    ``PREFILL_ROUNDINGS``); for hybrid and ssm, ``L`` becomes
+    ``sum G_l^2``, each layer's measured gain to the logits;
+  * the recurrent families (hymba, rwkv6) use the same logit tolerance:
+    their extra f32 work (a chunked GLA of c + Dk roundings a term, c = 16)
+    sits at the same depth of sums. Their states sum up to 40 steps of
+    products and are compared at ``1e-5`` of their largest magnitude.
 """
 import dataclasses
 import math
@@ -55,7 +63,9 @@ torch.set_num_threads(1)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DENSE = ("stablelm-1.6b", "yi-9b", "qwen2.5-14b")
+RECURRENT = ("hymba-1.5b", "rwkv6-1.6b")
 NON_DENSE = tuple(a for a in ARCH_IDS if get_config(a).family != "dense")
+NOT_PORTED = tuple(a for a in NON_DENSE if a not in RECURRENT)
 LOGIT_TOL = 1e-4
 
 
@@ -295,16 +305,50 @@ def test_decode_self_attention(arch):
 
 
 # ------------------------------------------------------------------- model
+def _redraw_constants(tree, seed=100):
+    """Every float leaf of more than one element that the reference
+    initialises to a constant c (norm scales and biases, the SSM's conv
+    bias, A, dt bias and skip, RWKV's lerp weights, decay base and bonus)
+    redrawn as c + 0.2 N (norm scales and skips, c = 1) or c + 0.5 N, in
+    its dtype, so that every term they gate, and every swap of two such
+    leaves, shows in the outputs."""
+    out = {}
+    for i, name in enumerate(sorted(tree)):
+        leaf = tree[name]
+        if isinstance(leaf, dict):
+            out[name] = _redraw_constants(leaf, seed + 100 * (i + 1))
+            continue
+        flat = np.asarray(leaf, np.float32).ravel()
+        if leaf.size > 1 and (flat == flat[0]).all():
+            scale = 0.2 if flat[0] == 1.0 else 0.5
+            leaf = (flat[0] + _rand(seed + i, *leaf.shape, scale=scale)
+                    ).astype(leaf.dtype)
+        out[name] = leaf
+    return out
+
+
 def _reference_params(cfg_j, seed):
     """The reference's init as numpy (what crosses to the port), biases
-    made nonzero so the qkv_bias branch is exercised."""
+    made nonzero so the qkv_bias branch is exercised, and for the
+    recurrent families every constant leaf redrawn (``_redraw_constants``)."""
     params = jax.tree.map(np.asarray, ModelJ(cfg_j).init(
         jax.random.PRNGKey(seed)))
-    attn = params["layers"]["attn"]
+    attn = params["layers"].get("attn", {})
     for i, name in enumerate(("bq", "bk", "bv")):
         if name in attn:
             attn[name] = _rand(60 + i, *attn[name].shape, scale=0.1)
+    if cfg_j.family in ("hybrid", "ssm"):
+        params = _redraw_constants(params)
     return params
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
 
 
 def _margin(logits, vocab):
@@ -319,6 +363,10 @@ MODEL_CASES = {
     # the dense family's sliding window with a global layer (the reference
     # honours cfg.window per layer; no shipped dense config sets it)
     "stablelm-1.6b-window": {"window": 3, "global_layers": (1,)},
+    # the recurrent families: a prompt of 32 (two GLA chunks of 16; the
+    # reduced hybrid's window of 8 bites in its one windowed layer)
+    "hymba-1.5b": {},
+    "rwkv6-1.6b": {},
 }
 
 
@@ -332,7 +380,8 @@ def test_model_prefill_and_greedy_decode(case):
     model_j, model_t = ModelJ(cfg_j), Model(cfg_t, device="cpu")
     params_t = convert.model_params_to_torch(params_np, device="cpu")
     params_j = jax.tree.map(jnp.asarray, params_np)
-    b, prompt_len, gen = 2, 6, 5
+    b, gen = 2, 5
+    prompt_len = 32 if arch in RECURRENT else 6
     prompt = np.random.default_rng(4).integers(0, cfg_j.vocab_size,
                                                (b, prompt_len))
 
@@ -365,10 +414,17 @@ def test_model_prefill_and_greedy_decode(case):
                                           torch.from_numpy(tj.copy()),
                                           prompt_len + i)
         _close(lt, lj, LOGIT_TOL)
-    assert set(cache_t) == {"k", "v"}
-    for name in ("k", "v"):
-        assert tuple(cache_t[name].shape) == cache_j[name].shape
-        _close(cache_t[name], cache_j[name], 1e-5)
+    flat_t, flat_j = _flat(cache_t), _flat(cache_j)
+    assert set(flat_t) == set(flat_j)
+    for name, leaf in flat_t.items():
+        ref = np.asarray(flat_j[name])
+        assert tuple(leaf.shape) == ref.shape
+        assert str(leaf.dtype).replace("torch.", "") == str(ref.dtype)
+        if name[-1] in ("state", "wkv"):     # recurrent sums of products
+            err = float(np.abs(leaf.numpy() - ref).max())
+            assert err <= 1e-5 * float(np.abs(ref).max()), name
+        else:
+            _close(leaf, ref, 1e-5)
 
 
 def _bf16_tolerance(n_layers, logits):
@@ -378,6 +434,58 @@ def _bf16_tolerance(n_layers, logits):
     largest of the compared logits stays within 6 of that rms."""
     rms = float(logits.float().pow(2).mean().sqrt())
     return 6.0 * 2.0 ** -8 * math.sqrt(n_layers * 17) * rms
+
+
+#: bf16 roundings a layer at which prefill and the stepped decode may land
+#: on neighbouring values (``chip_smoke.py`` holds the full-width models to
+#: the same counts, carried by the same measured gains). dense 17: two norms, q, k, v, RoPE on q and k, the
+#: attention probabilities and output, wo, two residual adds, up, gate,
+#: silu, the gated product, down. hybrid 35: those 17; the SSM branch's
+#: in_proj, its prefill conv (4 tap products, 3 partial sums, the bias add,
+#: silu: 9, which decode computes in f32 and rounds once), the f32 output's
+#: cast, silu(z), the gated product, its rms_norm, out_proj (15); the two
+#: output norms and their sum (3). ssm 48: time-mix 35 (ln1, shift - x,
+#: the mu_x product and sum, maa_w1, tanh, maa_w2, five lerps of three
+#: roundings each, the decay LoRA's two products and tanh, r, k, v, g,
+#: silu, the wkv output's cast, the group norm, the gated product, wo, the
+#: residual add), channel-mix 13 (ln2, shift - x, two products and two
+#: sums of the lerps, wk, the square, wv, wr, sigmoid, the product, the
+#: residual add).
+PREFILL_ROUNDINGS = {"dense": 17, "hybrid": 35, "ssm": 48}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_bf16_recurrent_prefill_matches_stepped_decode(arch):
+    """As ``test_bf16_prefill_matches_stepped_decode``, for the recurrent
+    families at 4 layers, d_model 256, head size 64 and a 64-token prompt
+    (four GLA chunks of 16), within ``6 * 2^-8 * sqrt(R * sum G_l^2) *
+    rms(logits)``: the family's own R, each layer's roundings carried to
+    the logits by that layer's measured gain (``serve.logit_gains``; the
+    dense form has every G_l = 1, which does not hold for these two:
+    rwkv6's early layers amplify a perturbation several times)."""
+    base = get_config(arch).reduced()
+    over = dict(n_layers=4, d_model=256, n_heads=4, head_dim=64, d_ff=704,
+                vocab_size=2048, dtype="bfloat16")
+    if base.rwkv is not None:
+        over["rwkv"] = dataclasses.replace(base.rwkv, head_size=64)
+    else:
+        over["ssm"] = dataclasses.replace(base.ssm, head_dim=64)
+    cfg = dataclasses.replace(base, **over)
+    model = Model(cfg, device="cpu")
+    params = model.init(5)
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 64)))
+    res = serve.generate(model, params, prompt, 2)
+    pf, _ = model.prefill(params, {"tokens": prompt})
+    assert pf.dtype == torch.bfloat16 and res["tokens"].shape == (2, 2)
+    dec = res["prompt_logits"][:, :cfg.vocab_size].float()
+    pre = pf[:, :cfg.vocab_size].float()
+    rms = float(dec.pow(2).mean().sqrt())
+    gains = serve.logit_gains(model, params, prompt)
+    assert len(gains) == cfg.n_layers and min(gains) > 0
+    tol = 6.0 * 2.0 ** -8 * math.sqrt(
+        PREFILL_ROUNDINGS[cfg.family] * sum(g * g for g in gains)) * rms
+    assert float((pre - dec).abs().max()) <= tol
 
 
 def test_bf16_prefill_matches_stepped_decode():
@@ -425,7 +533,60 @@ def test_model_init_is_seeded():
     assert not torch.equal(a["embed"]["w"], c["embed"]["w"])
 
 
-@pytest.mark.parametrize("arch", NON_DENSE)
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_init_layout_matches_the_reference(arch):
+    got = Model(get_config(arch).reduced(), device="cpu").init(0)
+    ref = jax.eval_shape(ModelJ(get_config_j(arch).reduced()).init,
+                         jax.random.PRNGKey(0))
+    shape = lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+    assert {k: shape(v) for k, v in _flat(got).items()} == \
+        {k: shape(v) for k, v in _flat(ref).items()}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_trees_cross_bit_for_bit_in_bf16(arch):
+    cfg_j = dataclasses.replace(get_config_j(arch).reduced(),
+                                dtype="bfloat16")
+    params_np = _reference_params(cfg_j, 7)
+    got = _flat(convert.model_params_to_torch(params_np, device="cpu"))
+    want = _flat(params_np)
+    assert set(got) == set(want)
+    n_bf16 = 0
+    for name, leaf in got.items():
+        ref = np.ascontiguousarray(want[name])
+        assert tuple(leaf.shape) == ref.shape
+        if ref.dtype.name == "bfloat16":
+            n_bf16 += 1
+            assert leaf.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                leaf.view(torch.int16).numpy().view(np.uint16),
+                ref.view(np.uint16))
+        else:
+            assert leaf.dtype == torch.float32
+            np.testing.assert_array_equal(leaf.numpy().view(np.uint32),
+                                          ref.view(np.uint32))
+    assert n_bf16 > 5
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_loss_fn_raises(arch):
+    model = Model(get_config(arch).reduced(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 3a"):
+        model.loss_fn(model.init(0), {
+            "tokens": torch.zeros((1, 16), dtype=torch.long),
+            "labels": torch.zeros((1, 16), dtype=torch.long)})
+
+
+def test_recurrent_prefill_needs_whole_chunks():
+    """As the reference: a prompt that is not a multiple of the GLA chunk
+    (16 at reduced size) is refused, not padded."""
+    model = Model(get_config("rwkv6-1.6b").reduced(), device="cpu")
+    with pytest.raises(AssertionError, match="not divisible by chunk"):
+        model.prefill(model.init(0),
+                      {"tokens": torch.zeros((1, 6), dtype=torch.long)})
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_other_families_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), device="cpu")
@@ -471,6 +632,22 @@ def test_model_defaults_to_the_card():
         Model(get_config("stablelm-1.6b").reduced())
     with pytest.raises(RuntimeError, match="cuda"):
         convert.model_params_to_torch({"w": _rand(74, 2)})
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_serve_main_recurrent_on_the_cpu(arch, monkeypatch, capsys):
+    """The serve CLI's ``main`` in this process (the file's one subprocess
+    test runs stablelm): ``--arch`` of a recurrent family, reduced, on the
+    CPU."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", arch, "--reduced", "--device", "cpu", "--batch",
+        "2", "--prompt-len", "5", "--gen", "3"])
+    serve.main()
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[serve]")]
+    assert len(lines) == 2
+    assert f"arch={arch} batch=2 prefill 5 tok" in lines[0]
+    assert "generated 3 tok" in lines[0]
 
 
 def test_serve_main_defaults_to_the_card(monkeypatch):
