@@ -23,7 +23,6 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import Model
-from repro_torch.models.layers import embed_lookup, rms_norm
 
 
 def generate(model: Model, params, prompt: torch.Tensor, gen: int,
@@ -61,46 +60,6 @@ def generate(model: Model, params, prompt: torch.Tensor, gen: int,
         t_gen = time.time() - t0
     return dict(tokens=np.stack(out, 1), prompt_logits=prompt_logits,
                 logits=logits, t_prefill=t_prefill, t_gen=t_gen)
-
-
-def logit_gains(model: Model, params, tokens: torch.Tensor,
-                eps: float = 2.0 ** -8):
-    """How far ``prefill``'s last-token logits move per unit of relative
-    change of each layer's output. For each layer l: the forward in f32
-    (the params upcast) with that layer's output h replaced by
-    ``h * (1 + eps * N(0, 1))`` (a generator seeded with l), and
-    ``G_l = rms(d logits) / (eps * rms(logits))`` over the real vocabulary.
-    Independent relative errors of rms eps at every layer's output then
-    move the logits by ``eps * sqrt(sum G_l^2) * rms(logits)`` in rms; a
-    near-identity residual stack has every G_l near 1. Returns [G_l]."""
-    cast = lambda t: (t.float() if t.is_floating_point() else t) \
-        if not isinstance(t, dict) else {k: cast(v) for k, v in t.items()}
-    p32 = cast(params)
-    vocab = model.cfg.vocab_size
-    rms = lambda t: t.pow(2).mean().sqrt()
-    with torch.no_grad():
-        x = embed_lookup(p32["embed"]["w"], tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)
-
-        def last_logits(after_layer=None):
-            h = model._backbone(p32, x, positions, after_layer)
-            h = rms_norm(h[:, -1], p32["final_norm"], model.cfg.norm_eps)
-            return (h @ p32["lm_head"]["w"])[:, :vocab]
-
-        base = last_logits()
-        gains = []
-        for layer in range(model.cfg.n_layers):
-            gen = torch.Generator(device=x.device).manual_seed(layer)
-
-            def perturb(i, h, layer=layer, gen=gen):
-                if i != layer:
-                    return h
-                return h * (1 + eps * torch.randn(
-                    h.shape, generator=gen, device=h.device, dtype=h.dtype))
-
-            d = last_logits(perturb) - base
-            gains.append(float(rms(d) / (eps * rms(base))))
-    return gains
 
 
 def main():

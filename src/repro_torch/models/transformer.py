@@ -198,11 +198,8 @@ class Model:
         h = layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
         return x + rwkv6.apply_channel_mix(p["cm"], h)
 
-    def _backbone(self, params, x, positions, after_layer=None
-                  ) -> torch.Tensor:
-        """Token embeddings -> final hidden states. ``after_layer(i, x)``,
-        when given, replaces each layer's output (a probe of how the
-        logits respond to a change there, ``launch.serve.logit_gains``)."""
+    def _backbone(self, params, x, positions) -> torch.Tensor:
+        """Token embeddings -> final hidden states."""
         cfg = self.cfg
         layers = unstack_layers(params["layers"], cfg.n_layers)
         if cfg.family == "ssm":
@@ -214,8 +211,6 @@ class Model:
             else:
                 x = self._block_fwd(p, x, positions,
                                     None if wins is None else wins[i])
-            if after_layer is not None:
-                x = after_layer(i, x)
         return x
 
     # ================================================================= losses

@@ -28,8 +28,11 @@ n-term sum (n <= 256 here, so ~1e-6):
     ``chip_smoke.py`` holds the full-width models to, with R the bf16
     roundings a layer at which the two paths may land on neighbouring
     values: 17 for the dense family, 35 for hybrid, 48 for ssm (counted at
-    ``PREFILL_ROUNDINGS``); for hybrid and ssm, ``L`` becomes
-    ``sum G_l^2``, each layer's measured gain to the logits;
+    ``PREFILL_ROUNDINGS``); the same bound holds the bf16 recurrent models
+    to the reference's;
+  * f32 ``prefill`` against the stepped decode, within one package:
+    ``6 * 2^-24 * sqrt(L * R * K) * rms(logits)``, K = d_ff, each of the R
+    sites now up to sqrt(K) f32 roundings of a sum taken in another order;
   * the recurrent families (hymba, rwkv6) use the same logit tolerance:
     their extra f32 work (a chunked GLA of c + Dk roundings a term, c = 16)
     sits at the same depth of sums. Their states sum up to 40 steps of
@@ -58,6 +61,7 @@ from repro_torch.launch import serve
 from repro_torch.models import Model
 from repro_torch.models import attention as attn_t
 from repro_torch.models import layers as layers_t
+from repro_torch.tree import tree_from_items, tree_items
 
 torch.set_num_threads(1)
 
@@ -427,18 +431,19 @@ def test_model_prefill_and_greedy_decode(case):
             _close(leaf, ref, 1e-5)
 
 
-def _bf16_tolerance(n_layers, logits):
-    """6 * 2^-8 * sqrt(L * 17) * rms(logits): 17 roundings to bf16 a layer
-    at which prefill and decode may land on neighbouring values (relative
-    rms <= 2^-8 each), independent, carried to the logits at gain ~1; the
-    largest of the compared logits stays within 6 of that rms."""
+def _bf16_tolerance(n_layers, logits, r=17):
+    """6 * 2^-8 * sqrt(L * R) * rms(logits): R roundings to bf16 a layer
+    (17 for the dense family) at which prefill and decode may land on
+    neighbouring values (relative rms <= 2^-8 each), independent, carried
+    to the logits at gain ~1; the largest of the compared logits stays
+    within 6 of that rms."""
     rms = float(logits.float().pow(2).mean().sqrt())
-    return 6.0 * 2.0 ** -8 * math.sqrt(n_layers * 17) * rms
+    return 6.0 * 2.0 ** -8 * math.sqrt(n_layers * r) * rms
 
 
 #: bf16 roundings a layer at which prefill and the stepped decode may land
 #: on neighbouring values (``chip_smoke.py`` holds the full-width models to
-#: the same counts, carried by the same measured gains). dense 17: two norms, q, k, v, RoPE on q and k, the
+#: the same counts). dense 17: two norms, q, k, v, RoPE on q and k, the
 #: attention probabilities and output, wo, two residual adds, up, gate,
 #: silu, the gated product, down. hybrid 35: those 17; the SSM branch's
 #: in_proj, its prefill conv (4 tap products, 3 partial sums, the bias add,
@@ -454,25 +459,28 @@ def _bf16_tolerance(n_layers, logits):
 PREFILL_ROUNDINGS = {"dense": 17, "hybrid": 35, "ssm": 48}
 
 
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_bf16_recurrent_prefill_matches_stepped_decode(arch):
-    """As ``test_bf16_prefill_matches_stepped_decode``, for the recurrent
-    families at 4 layers, d_model 256, head size 64 and a 64-token prompt
-    (four GLA chunks of 16), within ``6 * 2^-8 * sqrt(R * sum G_l^2) *
-    rms(logits)``: the family's own R, each layer's roundings carried to
-    the logits by that layer's measured gain (``serve.logit_gains``; the
-    dense form has every G_l = 1, which does not hold for these two:
-    rwkv6's early layers amplify a perturbation several times)."""
+def _recurrent_4layer(arch, dtype):
+    """A 4-layer recurrent model at d_model 256 and head size 64 (the
+    reduced chunk of 16), with its params from seed 5."""
     base = get_config(arch).reduced()
     over = dict(n_layers=4, d_model=256, n_heads=4, head_dim=64, d_ff=704,
-                vocab_size=2048, dtype="bfloat16")
+                vocab_size=2048, dtype=dtype)
     if base.rwkv is not None:
         over["rwkv"] = dataclasses.replace(base.rwkv, head_size=64)
     else:
         over["ssm"] = dataclasses.replace(base.ssm, head_dim=64)
-    cfg = dataclasses.replace(base, **over)
-    model = Model(cfg, device="cpu")
-    params = model.init(5)
+    model = Model(dataclasses.replace(base, **over), device="cpu")
+    return model, model.init(5)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_bf16_recurrent_prefill_matches_stepped_decode(arch):
+    """As ``test_bf16_prefill_matches_stepped_decode``, for the recurrent
+    families at 4 layers, d_model 256, head size 64 and a 64-token prompt
+    (four GLA chunks of 16), within ``6 * 2^-8 * sqrt(L * R) *
+    rms(logits)`` at the family's own R."""
+    model, params = _recurrent_4layer(arch, "bfloat16")
+    cfg = model.cfg
     prompt = torch.as_tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size, (2, 64)))
     res = serve.generate(model, params, prompt, 2)
@@ -480,12 +488,86 @@ def test_bf16_recurrent_prefill_matches_stepped_decode(arch):
     assert pf.dtype == torch.bfloat16 and res["tokens"].shape == (2, 2)
     dec = res["prompt_logits"][:, :cfg.vocab_size].float()
     pre = pf[:, :cfg.vocab_size].float()
-    rms = float(dec.pow(2).mean().sqrt())
-    gains = serve.logit_gains(model, params, prompt)
-    assert len(gains) == cfg.n_layers and min(gains) > 0
-    tol = 6.0 * 2.0 ** -8 * math.sqrt(
-        PREFILL_ROUNDINGS[cfg.family] * sum(g * g for g in gains)) * rms
+    tol = _bf16_tolerance(cfg.n_layers, dec, PREFILL_ROUNDINGS[cfg.family])
     assert float((pre - dec).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_f32_recurrent_prefill_matches_stepped_decode(arch):
+    """The bf16 params of the 4-layer model upcast to f32 (the same
+    weights), an f32 cache: ``prefill`` against the stepped decode within
+    ``6 * 2^-24 * sqrt(L * R * K) * rms(logits)``, K = d_ff, the bound
+    ``chip_smoke.py`` holds the full-width models to (the paths differ only
+    in summation order, up to sqrt(K) f32 roundings at each of R sites a
+    layer)."""
+    model, params = _recurrent_4layer(arch, "bfloat16")
+    cfg = model.cfg
+    p32 = tree_from_items([(k, t.float()) for k, t in tree_items(params)])
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 64)))
+    res = serve.generate(model, p32, prompt, 1, torch.float32)
+    pf, _ = model.prefill(p32, {"tokens": prompt})
+    dec = res["prompt_logits"][:, :cfg.vocab_size]
+    pre = pf[:, :cfg.vocab_size]
+    assert dec.dtype == pre.dtype == torch.float32
+    rms = float(dec.pow(2).mean().sqrt())
+    tol = 6.0 * 2.0 ** -24 * math.sqrt(
+        cfg.n_layers * PREFILL_ROUNDINGS[cfg.family] * cfg.d_ff) * rms
+    assert float((pre - dec).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_bf16_recurrent_model_matches_the_reference(arch):
+    """The reduced model in bf16, the reference's params carried across:
+    ``prefill`` and 32 stepped ``decode_step``s on a bf16 cache against the
+    reference's, the caches leaf by leaf with their dtypes. Each package
+    rounds its own bf16 results and XLA may fuse some roundings away, so
+    the two may land on neighbouring bf16 values at each of the family's
+    R sites a layer: within ``6 * 2^-8 * sqrt(L * R) * rms`` of the logits
+    (or of a cache leaf, for the leaf)."""
+    cfg_j = dataclasses.replace(get_config_j(arch).reduced(),
+                                dtype="bfloat16")
+    cfg_t = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    params_np = _reference_params(cfg_j, 3)
+    model_j, model_t = ModelJ(cfg_j), Model(cfg_t, device="cpu")
+    params_t = convert.model_params_to_torch(params_np, device="cpu")
+    params_j = jax.tree.map(jnp.asarray, params_np)
+    r = PREFILL_ROUNDINGS[cfg_t.family]
+    b, prompt_len = 2, 32
+    prompt = np.random.default_rng(4).integers(0, cfg_j.vocab_size,
+                                               (b, prompt_len))
+
+    def within(got, want):
+        want = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+        got = got.double().numpy()
+        tol = _bf16_tolerance(cfg_t.n_layers, torch.from_numpy(want), r)
+        assert np.abs(got - want).max() <= tol, (np.abs(got - want).max(),
+                                                 tol)
+
+    want, _ = model_j.prefill(params_j, {"tokens": jnp.asarray(prompt)})
+    got, _ = model_t.prefill(params_t, {"tokens": torch.as_tensor(prompt)})
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    within(got, want)
+
+    cache_j = model_j.init_cache(b, prompt_len, jnp.bfloat16)
+    cache_t = model_t.init_cache(b, prompt_len, torch.bfloat16)
+    step_j = jax.jit(model_j.decode_step)
+    for pos in range(prompt_len):
+        lj, cache_j = step_j(params_j, cache_j,
+                             jnp.asarray(prompt[:, pos], jnp.int32),
+                             jnp.int32(pos))
+        lt, cache_t = model_t.decode_step(params_t, cache_t,
+                                          torch.as_tensor(prompt[:, pos]),
+                                          pos)
+        assert lt.dtype == torch.bfloat16
+        within(lt, lj)
+    flat_t, flat_j = _flat(cache_t), _flat(cache_j)
+    assert set(flat_t) == set(flat_j)
+    for name, leaf in flat_t.items():
+        ref = flat_j[name]
+        assert tuple(leaf.shape) == ref.shape, name
+        assert str(leaf.dtype).replace("torch.", "") == str(ref.dtype), name
+        within(leaf, ref)
 
 
 def test_bf16_prefill_matches_stepped_decode():

@@ -366,3 +366,187 @@ def test_apply_time_mix_equals_stepped_decode():
                                     rwkv_cfg=cfg.rwkv)[0] for i in range(32)]
     _close(torch.stack(steps, 1), full, 2e-5)
 
+
+
+# ------------------------------------------------------------------- bf16
+# The models run in bf16 on the card; here each mixed-dtype step is held to
+# the reference's dtypes, and its values within 6 * 2^-8 * sqrt(R) * rms
+# of the reference's output, R the bf16 roundings of the step at which the
+# two packages may land on neighbouring values (XLA may fuse some away).
+def _bf16_params(tree, init_j):
+    """``tree`` (f32 numpy) with each leaf cast to the dtype the
+    reference's bf16 initialiser ``init_j(key, dtype)`` gives it -> (torch
+    tree, jax tree), the bf16 leaves bit for bit alike."""
+    layout = jax.eval_shape(lambda k: init_j(k, jnp.bfloat16),
+                            jax.random.PRNGKey(0))
+
+    def cast(t, lay):
+        if isinstance(t, dict):
+            pairs = {k: cast(t[k], lay[k]) for k in t}
+            return ({k: v[0] for k, v in pairs.items()},
+                    {k: v[1] for k, v in pairs.items()})
+        a = jnp.asarray(t, lay.dtype)
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            torch.bfloat16 if lay.dtype == jnp.bfloat16 else
+            torch.float32), a
+    return cast(tree, layout)
+
+
+def _bf16_within(got, want, r, dtype):
+    """got's dtype is ``dtype`` (the reference's), and max |got - want| <=
+    6 * 2^-8 * sqrt(r) * rms(want)."""
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype) == dtype
+    w = np.asarray(jnp.asarray(want, jnp.float32), np.float64)
+    err = np.abs(got.double().numpy() - w).max()
+    tol = 6.0 * 2.0 ** -8 * np.sqrt(r) * np.sqrt((w * w).mean())
+    assert err <= tol, (err, tol)
+
+
+def _record_gla(monkeypatch, module, log):
+    """Wrap ``module``'s ``chunked_gla`` and ``gla_decode`` to log the
+    dtypes of the arrays each call is handed."""
+    for name in ("chunked_gla", "gla_decode"):
+        def wrapped(*args, _fn=getattr(module, name), _name=name, **kw):
+            arrays = list(args) + [kw[k] for k in sorted(kw)
+                                   if hasattr(kw[k], "dtype")]
+            log.append((_name, [str(a.dtype).replace("torch.", "")
+                                for a in arrays]))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+
+def _ssm_bf16():
+    cfg = HYMBA
+    return _bf16_params(_ssm_params(5), lambda k, dt: mamba_j.init_ssm(
+        k, cfg.d_model, cfg.ssm, dt))
+
+
+def _tm_bf16():
+    cfg = RWKV
+    return _bf16_params(_tm_params(5), lambda k, dt: rwkv_j.init_time_mix(
+        k, cfg.d_model, cfg.rwkv, dt))
+
+
+def test_ddlerp_and_decay_bf16():
+    """``_ddlerp`` stays in bf16 (R = 8: the mu_x product and sum, maa_w1,
+    tanh, maa_w2, mu + mus, the sx product, the sum); ``_decay`` is f32,
+    its log(-g) - omega (the LoRA, R = 3: two products and tanh) within
+    the bound of the LoRA's rms."""
+    cfg = RWKV
+    pt, pj = _tm_bf16()
+    x = jnp.asarray(_rand(41, B, 7, cfg.d_model), jnp.bfloat16)
+    sx = rwkv_j._shift(x) - x
+    xt, sxt = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+               for a in (x, sx))
+    got, want = rwkv_t._ddlerp(pt, xt, sxt), rwkv_j._ddlerp(pj, x, sx)
+    for a, b in zip(got, want):
+        _bf16_within(a, b, 8, "bfloat16")
+    g_t, g_j = rwkv_t._decay(pt, got[0]), rwkv_j._decay(pj, want[0])
+    base = np.asarray(pj["decay_base"], np.float64)
+    lora_j = np.log(-np.asarray(g_j, np.float64)) - base
+    lora_t = (torch.log(-g_t.double()) - torch.from_numpy(base)).float()
+    _bf16_within(lora_t, jnp.asarray(lora_j, jnp.float32), 3, "float32")
+    assert g_t.dtype == torch.float32 and str(g_j.dtype) == "float32"
+
+
+def test_apply_ssm_bf16(monkeypatch):
+    """The SSM branch in bf16 (R = 15, the branch's count in
+    ``PREFILL_ROUNDINGS``): bf16 out, and the GLA handed q, k in bf16 and
+    v = xs * dt, g in f32, as the reference hands them."""
+    cfg = HYMBA
+    pt, pj = _ssm_bf16()
+    x = jnp.asarray(_rand(11, B, 32, cfg.d_model), jnp.bfloat16)
+    log_t, log_j = [], []
+    _record_gla(monkeypatch, mamba_t, log_t)
+    _record_gla(monkeypatch, mamba_j, log_j)
+    got = mamba_t.apply_ssm(pt, torch.from_numpy(
+        np.asarray(x, np.float32)).bfloat16(), d_model=cfg.d_model,
+        ssm_cfg=cfg.ssm)
+    want = mamba_j.apply_ssm(pj, x, d_model=cfg.d_model,
+                             ssm_cfg=get_config_j("hymba-1.5b").reduced().ssm)
+    assert log_t == log_j and log_t[0][1][2:4] == ["float32", "float32"]
+    _bf16_within(got, want, 15, "bfloat16")
+
+
+def test_decode_ssm_bf16(monkeypatch):
+    """Six bf16 steps from a zero cache: outputs (R = 15), the f32 conv
+    history and state, and the dtypes handed to ``gla_decode``, against
+    the reference's."""
+    cfg = HYMBA
+    ssm_j = get_config_j("hymba-1.5b").reduced().ssm
+    pt, pj = _ssm_bf16()
+    cache_t = mamba_t.init_ssm_cache(B, cfg.d_model, cfg.ssm)
+    cache_j = mamba_j.init_ssm_cache(B, cfg.d_model, ssm_j)
+    log_t, log_j = [], []
+    _record_gla(monkeypatch, mamba_t, log_t)
+    _record_gla(monkeypatch, mamba_j, log_j)
+    for step in range(6):
+        x = jnp.asarray(_rand(25 + step, B, cfg.d_model), jnp.bfloat16)
+        got, cache_t = mamba_t.decode_ssm(
+            pt, torch.from_numpy(np.asarray(x, np.float32)).bfloat16(),
+            cache_t, d_model=cfg.d_model, ssm_cfg=cfg.ssm)
+        want, cache_j = mamba_j.decode_ssm(pj, x, cache_j,
+                                           d_model=cfg.d_model,
+                                           ssm_cfg=ssm_j)
+        _bf16_within(got, want, 15, "bfloat16")
+    assert log_t == log_j
+    _bf16_within(cache_t["conv"], cache_j["conv"], 15, "float32")
+    _bf16_within(cache_t["state"], cache_j["state"], 15, "float32")
+
+
+def test_apply_time_mix_bf16(monkeypatch):
+    """The time-mix in bf16 (R = 35, its count in ``PREFILL_ROUNDINGS``),
+    the GLA handed r, k, v in bf16 and g in f32 as the reference hands
+    them; the channel-mix (R = 13) beside it."""
+    cfg = RWKV
+    pt, pj = _tm_bf16()
+    x = jnp.asarray(_rand(51, B, 32, cfg.d_model), jnp.bfloat16)
+    xt = torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+    log_t, log_j = [], []
+    _record_gla(monkeypatch, rwkv_t, log_t)
+    _record_gla(monkeypatch, rwkv_j, log_j)
+    got = rwkv_t.apply_time_mix(pt, xt, n_heads=cfg.n_heads,
+                                rwkv_cfg=cfg.rwkv)
+    want = rwkv_j.apply_time_mix(pj, x, n_heads=cfg.n_heads,
+                                 rwkv_cfg=get_config_j(
+                                     "rwkv6-1.6b").reduced().rwkv)
+    assert log_t == log_j and log_t[0][1][3] == "float32"
+    _bf16_within(got, want, 35, "bfloat16")
+    cmt, cmj = _bf16_params(_cm_params(5), lambda k, dt: (
+        rwkv_j.init_channel_mix(k, cfg.d_model, cfg.d_ff, dt)))
+    _bf16_within(rwkv_t.apply_channel_mix(cmt, xt),
+                 rwkv_j.apply_channel_mix(cmj, x), 13, "bfloat16")
+
+
+def test_decode_time_and_channel_mix_bf16(monkeypatch):
+    """Six bf16 steps of both mixes from a zero cache: outputs, the f32
+    token shifts and wkv state, and the dtypes handed to ``gla_decode``,
+    against the reference's."""
+    cfg = RWKV
+    rcfg_j = get_config_j("rwkv6-1.6b").reduced().rwkv
+    tmt, tmj = _tm_bf16()
+    cmt, cmj = _bf16_params(_cm_params(6), lambda k, dt: (
+        rwkv_j.init_channel_mix(k, cfg.d_model, cfg.d_ff, dt)))
+    cache_t = rwkv_t.init_rwkv_cache(B, cfg.d_model, cfg.n_heads, cfg.rwkv)
+    cache_j = rwkv_j.init_rwkv_cache(B, cfg.d_model, cfg.n_heads, rcfg_j)
+    log_t, log_j = [], []
+    _record_gla(monkeypatch, rwkv_t, log_t)
+    _record_gla(monkeypatch, rwkv_j, log_j)
+    bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+    for step in range(6):
+        x = jnp.asarray(_rand(75 + step, B, cfg.d_model), jnp.bfloat16)
+        got, cache_t = rwkv_t.decode_time_mix(tmt, bf(x), cache_t,
+                                              n_heads=cfg.n_heads,
+                                              rwkv_cfg=cfg.rwkv)
+        want, c_tm = rwkv_j.decode_time_mix(tmj, x, cache_j,
+                                            n_heads=cfg.n_heads,
+                                            rwkv_cfg=rcfg_j)
+        _bf16_within(got, want, 35, "bfloat16")
+        y = jnp.asarray(_rand(85 + step, B, cfg.d_model), jnp.bfloat16)
+        got, _ = rwkv_t.decode_channel_mix(cmt, bf(y), cache_t)
+        want, cm_j = rwkv_j.decode_channel_mix(cmj, y, c_tm)
+        _bf16_within(got, want, 13, "bfloat16")
+        cache_j = {"tm_x": c_tm["tm_x"], "cm_x": cm_j, "wkv": c_tm["wkv"]}
+    assert log_t == log_j
+    for name in ("tm_x", "cm_x", "wkv"):
+        _bf16_within(cache_t[name], cache_j[name], 35, "float32")
