@@ -73,7 +73,8 @@
    twice, bit for bit; ``launch.fl_train.run(engine="round")`` at the
    CLI's defaults (bcrs_opwa, C = 8, 4 rounds), eftopk at C = 4 (4
    rounds; its f32 residuals do not fit at C = 8) and bcrs_opwa at C = 8
-   with ``fail_prob`` 0.3 (masked slots), each kernel launched leaves x
+   with ``fail_prob`` 0.3 (masked slots), these two at ``CUT_LAYERS`` of
+   the 24 layers (full width), each kernel launched leaves x
    rounds, wall per round (first apart), peak memory and the merge's
    share of a round from CUDA events around each leaf's
    ``compress_merge_leaf``; then each of the three again through
@@ -86,7 +87,7 @@
    the kernel and the plain route of ``compress_merge_leaf`` (masks, ks,
    residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16 params
    within one ULP); ``fl_train --population`` (bcrs_opwa, P = 10,000,
-   cohort 8, 3 rounds) and ``--engine async`` (bcrs_opwa, K = M = 2, a
+   cohort 8, 3 rounds; at ``CUT_LAYERS`` layers) and ``--engine async`` (bcrs_opwa, K = M = 2, a
    version ring of 2, 3 flushes) at full width, launches counted, the
    async run's first flush (the whole raveled model, [2, n], C*n = 3.3e9)
    held against both kernels' twins bit for bit; restarts
@@ -130,7 +131,8 @@
    bf16, random weights from a seed; none of the kernels runs there):
    ``launch.serve.generate`` as in 9, launches counted (zero), finite
    logits, the bf16 prefill-vs-decode gap recorded; the same params upcast
-   to f32, ``Model.prefill`` over a 256-token prompt (two GLA chunks)
+   to f32 and cut to their first ``CUT_LAYERS`` layers, ``Model.prefill``
+   over a 256-token prompt (two GLA chunks)
    against ``generate``'s stepped decode on an f32 cache within the
    counted f32 bound ``6 * 2^-24 * sqrt(L * R * d_ff) * rms(logits)``;
    decode ms a step beside its byte bound (weights, KV cache, the
@@ -139,8 +141,24 @@
    ``chunked_gla`` over 4 chunks of layer 0's own inputs (hymba: scalar,
    inclusive, 50 heads, Dk 16, Dv 64; rwkv6: per-channel decay and bonus,
    32 heads of 64) against ``reference_recurrence`` within
-   ``gla.summation_bound``;
-11. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+   ``gla.summation_bound`` (its log-decay term from each chunk's
+   ``sum |g|``, the largest printed);
+11. the recurrent training phase (hymba-1.5b and rwkv6-1.6b at full
+   width, bf16, seed 0, ``remat="full"``; ``launch.train``'s defaults:
+   B = 8, S = 256, two GLA chunks): one batch's gradient twice, bit for
+   bit; the loss and every gradient under ``remat`` "none", "full" and
+   "dots", bit for bit, with each mode's peak memory; ``launch.train``
+   dense sgd, 4 steps (no merge launch, wall a step, peak memory, a
+   profiled step); hymba only: ``--compressed-pods 4 --wire-cr 0.05``, 4
+   steps (``threshold_find`` and ``fused_merge`` once per leaf of at
+   least 4096 elements a step, EF residuals nonzero there, the merge's ms
+   a step, one step's pod gradients through both merge routes), and
+   ``fl_train`` at its defaults (bcrs_opwa, C = 8, 4 rounds) through the
+   round engine (launches leaves x rounds, wall, peak, the merge's share,
+   losses per round) and the mesh scan (one captured CUDA graph a round,
+   the checkpointed backward inside it; bit for bit against the round
+   engine);
+12. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path, of the population engine and 3 flushes of the async engine
    (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
    parts: forward, backward, update) and 3 decode steps of each serve path
@@ -154,6 +172,7 @@ and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1468,6 +1487,55 @@ FL_ASYNC = dict(rounds=3, async_buffer_k=2, async_concurrency=2,
                 async_version_ring=2)
 
 
+#: the depth (layers) at which some earlier full-width paths run, at their
+#: full width, so that the whole script stays near its 600 s aim: the FL
+#: phase's eftopk C = 4 and fail-0.3 runs, the population run, and the
+#: recurrent families' f32 prefill-vs-decode check. What they hold (EF
+#: residuals, masked slots, the client store, the chunk carry) does not
+#: depend on the depth; the CLI-default runs stay at full depth.
+CUT_LAYERS = 8
+
+
+def cut_config(cfg, n_layers: int):
+    """``cfg`` with its first ``n_layers`` layers (and the global-attention
+    layers among them)."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=n_layers, global_layers=tuple(
+        g for g in cfg.global_layers if g < n_layers))
+
+
+@contextlib.contextmanager
+def at_depth(n_layers):
+    """``get_config`` as ``launch.fl_train`` and the checks' helpers read
+    it, with ``n_layers`` layers (no change for None)."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import fl_train as fl
+    if n_layers is None:
+        yield
+        return
+    full = configs.get_config
+
+    def cut(arch):
+        return cut_config(full(arch), n_layers)
+    configs.get_config = fl.get_config = cut
+    try:
+        yield
+    finally:
+        configs.get_config = fl.get_config = full
+
+
+def cut_model(model, params, n_layers):
+    """The first ``n_layers`` layers of a stacked model (views) and its
+    config's model."""
+    from repro_torch.models import Model
+    def first(tree):
+        if isinstance(tree, dict):
+            return {k: first(v) for k, v in tree.items()}
+        return tree[:n_layers]
+    cut = Model(cut_config(model.cfg, n_layers), device="cuda")
+    return cut, dict(params, layers=first(params["layers"]))
+
+
 def big_leaf_case(c: int, n: int, seed: int, ef: bool):
     """One real-model leaf's [C, n] updates (N(0, 1e-3), the scale of a
     bf16 delta) with the edges: a block of ties, a denormal row, a huge
@@ -1590,24 +1658,23 @@ def bf16_ulp_close(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def grad_reproducible(model, params, batch):
     """One client's loss and gradient at full width, twice on the same
-    batch: bit for bit (the one-hot embedding's backward is a matmul)."""
-    from repro_torch.fed import engine as eng
-    items = eng.tree_items(params)
+    batch: bit for bit (the one-hot embedding's backward is a matmul). A
+    leaf the loss does not read (rwkv6's ``final_norm_b``) gets zeros, as
+    the trainers give it."""
+    from repro_torch.dist.grad_sync import loss_and_grads
     outs = []
     for _ in range(2):
-        live = [p.detach().requires_grad_(True) for _, p in items]
-        loss, _ = model.loss_fn(eng.tree_from_items(
-            zip([k for k, _ in items], live)), batch)
-        grads = torch.autograd.grad(loss, live)
-        outs.append((loss.detach(), [g.detach() for g in grads]))
-        del live, grads
+        loss, _, grads = loss_and_grads(model.loss_fn, params, batch)
+        outs.append((loss, grads))
+        del grads
     (l1, g1), (l2, g2) = outs
     same = bits_equal(l1, l2) and all(
         torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
                     else a.view(torch.int32),
                     b.view(torch.int16) if b.dtype == torch.bfloat16
                     else b.view(torch.int32)) for a, b in zip(g1, g2))
-    check(same, "full-width gradient bit-reproducible run to run")
+    check(same, f"{model.cfg.name}: full-width gradient bit-reproducible "
+          "run to run")
     return float(l1)
 
 
@@ -2000,8 +2067,9 @@ def fl_engines_at_full_width(kern, zero, fl, leaves, n_params, record):
         torch.cuda.reset_peak_memory_stats()
         recorder = (recording_first_flush(n_params) if label == "async"
                     else contextlib.nullcontext({}))
+        depth = CUT_LAYERS if label == "population" else None
         t0 = time.perf_counter()
-        with recorder as rec:
+        with recorder as rec, at_depth(depth):
             res, counts = drive(kern, lambda: fl.run(cfg))
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -2017,7 +2085,8 @@ def fl_engines_at_full_width(kern, zero, fl, leaves, n_params, record):
         for name, n in counts.items():
             total[name] += n
         run_rec = dict(config={k: v for k, v in kw.items()},
-                       strategy=cfg.strategy, losses=res["losses"],
+                       n_layers=depth or "full", strategy=cfg.strategy,
+                       losses=res["losses"],
                        wall_per_round_s=res["wall_per_round"],
                        run_wall_s=wall, peak_memory_bytes=peak,
                        launches=counts)
@@ -2086,6 +2155,54 @@ def fl_restarts_reduced(fl):
               f"{rounds} rounds bit for bit, store included")
 
 
+def fl_round_run(kern, zero, fl, cfg, leaves, label):
+    """``fl_train.run`` on ``cfg`` (the round engine) with the counts set
+    to 0 just before and read just after: the rounds run, finite losses,
+    each kernel launched leaves x rounds, wall per round (first apart),
+    peak memory and the merge's share of a round from CUDA events around
+    each leaf's ``compress_merge_leaf``. Returns (its record, the run's
+    result, counts)."""
+    from repro_torch.fed import mesh_round
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    events = []
+    merge_leaf = mesh_round.compress_merge_leaf
+    mesh_round.compress_merge_leaf = timed_merge(merge_leaf, events)
+    try:
+        res, counts = drive(kern, lambda: fl.run(cfg))
+    finally:
+        mesh_round.compress_merge_leaf = merge_leaf
+    n_rounds = len(res["executed_rounds"])
+    check(n_rounds == cfg.rounds, f"{label}: rounds executed")
+    check(all(math.isfinite(v) for v in res["losses"]),
+          f"{label}: finite losses {res['losses']}")
+    check_counts(counts, dict(zero, threshold_find=leaves * n_rounds,
+                              fused_merge=leaves * n_rounds), label)
+    check(len(events) == leaves * n_rounds, f"{label}: merge events")
+    merge_ms = [sum(s.elapsed_time(e) for s, e in
+                    events[r * leaves:(r + 1) * leaves])
+                for r in range(n_rounds)]
+    wall = res["wall_per_round"]
+    peak = torch.cuda.max_memory_allocated()
+    rec = dict(
+        arch=cfg.arch, strategy=cfg.strategy, clients=cfg.clients,
+        fail_prob=cfg.fail_prob, rounds=n_rounds, losses=res["losses"],
+        wall_per_round_s=wall, first_round_s=wall[0],
+        later_rounds_s=wall[1:], merge_ms_per_round=merge_ms,
+        merge_share=[m / 1e3 / t for m, t in zip(merge_ms, wall)],
+        peak_memory_bytes=peak, launches=counts,
+        alloc_retries=torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        - retries)
+    print(f"[fl] {label}: losses {res['losses']} wall per round (s) "
+          f"first {wall[0]:.3f}, then {[round(t, 4) for t in wall[1:]]}"
+          f"; merge {[round(m, 2) for m in merge_ms]} ms a round "
+          f"(share {[round(s, 4) for s in rec['merge_share']]})"
+          f"; peak memory {peak / 1e9:.2f} GB ({rec['alloc_retries']} "
+          f"allocator retries); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return rec, res, counts
+
+
 def fl_train_phase(kern, zero, record):
     """Real-model FL training at stablelm-1.6b's full width on the card:
     (a) ``threshold_find`` and ``fused_merge`` bit for bit against their
@@ -2111,7 +2228,6 @@ def fl_train_phase(kern, zero, record):
     import gc
     import tempfile
     from repro_torch.fed import engine as eng
-    from repro_torch.fed import mesh_round
     from repro_torch.kernels import fused_merge as fm
     from repro_torch.kernels import threshold_find as tf
     from repro_torch.configs import get_config
@@ -2148,65 +2264,39 @@ def fl_train_phase(kern, zero, record):
                       (f"bcrs_opwa C=8 fail {FL_FAIL}",
                        dict(rounds=FL_ROUNDS, fail_prob=FL_FAIL))):
         cfg = fl.FLTrainConfig(engine="round", device="cuda", **kw)
-        torch.cuda.reset_peak_memory_stats()
-        events = []
-        merge_leaf = mesh_round.compress_merge_leaf
-        mesh_round.compress_merge_leaf = timed_merge(merge_leaf, events)
-        try:
-            res, counts = drive(kern, lambda: fl.run(cfg))
-        finally:
-            mesh_round.compress_merge_leaf = merge_leaf
-        n_rounds = len(res["executed_rounds"])
-        check(n_rounds == cfg.rounds, f"{label}: rounds executed")
-        check(all(math.isfinite(v) for v in res["losses"]),
-              f"{label}: finite losses {res['losses']}")
-        check_counts(counts, dict(zero, threshold_find=leaves * n_rounds,
-                                  fused_merge=leaves * n_rounds), label)
-        for name, n in counts.items():
-            total[name] += n
-        check(len(events) == leaves * n_rounds, f"{label}: merge events")
-        merge_ms = [sum(s.elapsed_time(e) for s, e in
-                        events[r * leaves:(r + 1) * leaves])
-                    for r in range(n_rounds)]
-        wall = res["wall_per_round"]
-        peak = torch.cuda.max_memory_allocated()
-        runs[label] = dict(
-            strategy=cfg.strategy, clients=cfg.clients,
-            fail_prob=cfg.fail_prob, rounds=n_rounds,
-            losses=res["losses"], wall_per_round_s=wall,
-            first_round_s=wall[0], later_rounds_s=wall[1:],
-            merge_ms_per_round=merge_ms,
-            merge_share=[m / 1e3 / t for m, t in zip(merge_ms, wall)],
-            peak_memory_bytes=peak, launches=counts)
-        print(f"[fl] {label}: losses {res['losses']} wall per round (s) "
-              f"first {wall[0]:.3f}, then {[round(t, 4) for t in wall[1:]]}"
-              f"; merge {[round(m, 2) for m in merge_ms]} ms a round "
-              f"(share {[round(s, 4) for s in runs[label]['merge_share']]})"
-              f"; peak memory {peak / 1e9:.2f} GB; launches "
-              f"{ {k: v for k, v in counts.items() if v} }")
-        params, residuals = res["params"], res["residuals"]
-        ref = dict(executed_rounds=res["executed_rounds"],
-                   losses=res["losses"], params=host_copy(params),
-                   residuals=(host_copy(residuals)
-                              if cfg.strategy == "eftopk" else None))
-        del res, events
-        gc.collect()
-        torch.cuda.empty_cache()
-        if cfg.strategy == "eftopk":
-            # one round's deltas through both routes (EF: masks, ks,
-            # residuals, agg and params all compared)
-            routes_on_the_same_deltas(fl, cfg, params, residuals, record)
-        del params, residuals
-        gc.collect()
-        torch.cuda.empty_cache()
-        # the same run through the mesh scan: one CUDA graph a round
-        scans[label], counts = scan_against_round(kern, zero, fl, cfg, ref,
-                                                  leaves, n_params, label)
-        for name, n in counts.items():
-            total[name] += n
-        scans[label]["round_engine_later_rounds_s"] = wall[1:]
-        scans[label]["masked_slots_per_round"] = masked_slots(fl, cfg,
-                                                              n_params)
+        depth = None if label == "bcrs_opwa C=8" else CUT_LAYERS
+        with at_depth(depth):
+            runs[label], res, counts = fl_round_run(kern, zero, fl, cfg,
+                                                    leaves, label)
+            runs[label]["n_layers"] = depth or model.cfg.n_layers
+            for name, n in counts.items():
+                total[name] += n
+            wall = res["wall_per_round"]
+            params, residuals = res["params"], res["residuals"]
+            n_run = sum(p.numel() for _, p in eng.tree_items(params))
+            ref = dict(executed_rounds=res["executed_rounds"],
+                       losses=res["losses"], params=host_copy(params),
+                       residuals=(host_copy(residuals)
+                                  if cfg.strategy == "eftopk" else None))
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            if cfg.strategy == "eftopk":
+                # one round's deltas through both routes (EF: masks, ks,
+                # residuals, agg and params all compared)
+                routes_on_the_same_deltas(fl, cfg, params, residuals,
+                                          record)
+            del params, residuals
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the same run through the mesh scan: one CUDA graph a round
+            scans[label], counts = scan_against_round(
+                kern, zero, fl, cfg, ref, leaves, n_run, label)
+            for name, n in counts.items():
+                total[name] += n
+            scans[label]["round_engine_later_rounds_s"] = wall[1:]
+            scans[label]["masked_slots_per_round"] = masked_slots(fl, cfg,
+                                                                  n_run)
         del ref
         gc.collect()
 
@@ -2837,12 +2927,13 @@ def profile_fl_step(record):
             zip([k for k, _ in items], live)), batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.no_grad():
             for t, g in zip(live, grads):
-                t.sub_(lr[t.dtype] * g)
+                if g is not None:          # an unused leaf: g = 0
+                    t.sub_(lr[t.dtype] * g)
         torch.cuda.synchronize()
         return [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
                 (time.perf_counter() - t2) * 1e3]
@@ -3397,7 +3488,8 @@ def serve_path(kern, zero, model, params, record, key="serve"):
     else:
         out["bf16_gap_over_dense_form"] = diff / tol
         torch.cuda.empty_cache()
-        out["f32"] = prefill_vs_decode_f32(kern, zero, model, params)
+        out["f32"] = prefill_vs_decode_f32(
+            kern, zero, *cut_model(model, params, CUT_LAYERS))
     print(f"[{key}] {cfg.name} B={SERVE_BATCH}: stepped prefill "
           f"{PROMPT} tok {out['stepped_prefill_ms']:.1f} ms, "
           f"Model.prefill {prefill_ms:.2f} ms, decode "
@@ -3455,12 +3547,12 @@ def prefill_vs_decode_f32(kern, zero, model, params):
           "margin exceeds 2 * tol")
     rms = float(dec.pow(2).mean().sqrt())
     out = dict(batch=LOGIT32_BATCH, prompt=LOGIT32_PROMPT,
-               max_abs=diff, tol=tol, over_tol=diff / tol, logits_rms=rms,
+               n_layers=cfg.n_layers, max_abs=diff, tol=tol, over_tol=diff / tol, logits_rms=rms,
                formula=f"6 * 2^-24 * sqrt(L * {r} * {cfg.d_ff}) * "
                        "rms(logits)",
                argmax_agree=same.tolist(), top2_margin=margin.tolist())
-    print(f"[f32 prefill vs decode] {cfg.name} B={LOGIT32_BATCH} "
-          f"S={LOGIT32_PROMPT}: max |d| {diff:.4g} = {diff / tol:.3g} of "
+    print(f"[f32 prefill vs decode] {cfg.name} at {cfg.n_layers} layers "
+          f"B={LOGIT32_BATCH} S={LOGIT32_PROMPT}: max |d| {diff:.4g} = {diff / tol:.3g} of "
           f"tol {tol:.4g} ({out['formula']}; rms {rms:.4g})")
     return out
 
@@ -3545,14 +3637,19 @@ def gla_against_recurrence(model, params):
     """``chunked_gla`` over 4 chunks on layer 0's own inputs against the
     port's ``reference_recurrence`` on the card (the carry across chunks,
     which a 128-token prompt does not reach), outputs and final state within
-    ``gla.summation_bound``: (c + Dk + 8) * 2^-24 * A, A the recurrence in
-    f64 on the magnitudes, the bound the CPU tests hold both packages to.
-    Both timed (CUDA events)."""
+    ``gla.summation_bound``: (c + Dk + 8) * 2^-24 * A + 2 (c + 1) * 2^-24 *
+    A_G, A the recurrence in f64 on the magnitudes and A_G the same with
+    each product weighted by the log-decay sums G (``sum |g|`` over a
+    chunk) of the chunks it crosses, the bound the CPU tests hold both
+    packages to. Prints the largest G of these inputs. Both timed (CUDA
+    events)."""
     from repro_torch.models import gla
     chunk = (model.cfg.rwkv or model.cfg.ssm).chunk
     r, k, v, g, u, inclusive = layer0_gla_inputs(model, params,
                                                  GLA_CHUNKS * chunk)
     kw = dict(u=u, inclusive=inclusive)
+    big_g = float(g.double().abs().unflatten(2, (GLA_CHUNKS, chunk)).sum(
+        3).max())
 
     def over(got, want, bound):
         """max |got - want| / bound (inf where a zero bound is exceeded)."""
@@ -3577,12 +3674,14 @@ def gla_against_recurrence(model, params):
           f"{ratio_o:.3g} (outputs), {ratio_s:.3g} (state)")
     out = dict(shape=dict(r=list(r.shape), v=list(v.shape), g=list(g.shape)),
                chunk=chunk, inclusive=inclusive, bonus=u is not None,
+               max_chunk_log_decay_sum=big_g,
                max_over_bound_o=ratio_o, max_over_bound_state=ratio_s,
-               bound="(c + Dk + 8) * 2^-24 * A", chunked_ms=ms,
-               recurrence_ms=rec_ms)
-    print(f"[gla] {name} {list(r.shape)} -> {list(v.shape)}: chunked vs "
-          f"recurrence |d| / bound {ratio_o:.3g} / {ratio_s:.3g} (o / "
-          f"state); chunked {ms:.3f} ms, stepped {rec_ms:.1f} ms")
+               bound="(c + Dk + 8) * 2^-24 * A + 2 (c + 1) * 2^-24 * A_G",
+               chunked_ms=ms, recurrence_ms=rec_ms)
+    print(f"[gla] {name} {list(r.shape)} -> {list(v.shape)}: largest G "
+          f"(sum |g| over a chunk) {big_g:.4g}; chunked vs recurrence "
+          f"|d| / bound {ratio_o:.3g} / {ratio_s:.3g} (o / state); chunked "
+          f"{ms:.3f} ms, stepped {rec_ms:.1f} ms")
     return out
 
 
@@ -3630,6 +3729,174 @@ def recurrent_serve_phase(kern, zero, record, profile):
     torch.cuda.empty_cache()
     record["recurrent_serve_phase_s"] = time.perf_counter() - t0
     print(f"[recurrent serve phase] {record['recurrent_serve_phase_s']:.1f} s")
+
+
+# ---------------------------------------------- recurrent training phase
+REMAT_MODES = ("none", "full", "dots")
+
+
+def remat_modes_bit_for_bit(arch, params, batch):
+    """One batch's loss and every gradient under ``remat`` "none", "full"
+    and "dots": bit for bit equal (a recompute runs the same kernels on the
+    same shapes), each mode's peak memory and wall (ending in a
+    synchronize). The first mode's gradients stay on the card for the
+    comparison; each later mode's are freed once compared."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist.grad_sync import loss_and_grads
+    from repro_torch.models import Model
+    out, first = {}, None
+    for mode in REMAT_MODES:
+        model = Model(dataclasses.replace(get_config(arch), remat=mode),
+                      device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(model.loss_fn, params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[mode] = dict(loss=float(loss), wall_s=wall,
+                         peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if first is None:
+            first = (loss, grads)
+        else:
+            check(bits_equal(loss, first[0]) and all(
+                a.dtype == b.dtype and same_bits(a, b)
+                for a, b in zip(grads, first[1])),
+                f"{arch}: loss and every gradient under remat {mode!r} "
+                f"bit for bit those under {REMAT_MODES[0]!r}")
+        del grads
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[remat] {arch}: loss and gradients bit for bit under "
+          f"{', '.join(REMAT_MODES)}; peak GB "
+          f"{ {m: round(v['peak_memory_bytes'] / 1e9, 2) for m, v in out.items()} }"
+          f", wall s { {m: round(v['wall_s'], 3) for m, v in out.items()} }")
+    return out
+
+
+def recurrent_train_phase(kern, zero, record):
+    """Training the hybrid (hymba-1.5b) and ssm (rwkv6-1.6b) families at
+    full width on the card (bf16, seed 0, the config's ``remat``,
+    "full"; ``launch.train``'s CLI defaults: sgd, lr 1e-2, B = 8, S = 256,
+    two GLA chunks). For each family: (1) one batch's loss and gradient
+    twice, bit for bit (``grad_reproducible``; rwkv6's unread
+    ``final_norm_b`` gets zeros); (2) the loss and every gradient under
+    ``remat`` "none", "full" and "dots", bit for bit, with each mode's
+    peak memory (``remat_modes_bit_for_bit``); (3) ``train.run``, 4 steps,
+    counts set to 0 just before and read just after: finite losses, no
+    merge launch, the wall a step (first apart), peak memory, and one more
+    step under the profiler (device idle share). hymba only: (4) ``train
+    --compressed-pods 4 --wire-cr 0.05``, 4 steps: each merge kernel
+    launched once per leaf of at least 4096 elements a step, EF residuals
+    nonzero on those leaves, the merge's ms a step, then one step's pod
+    gradients through both routes of ``compress_merge_leaf``
+    (``train_routes``: thresholds, masks, ks and residuals bitwise, agg
+    within its bound); (5) ``fl_train`` at the CLI's defaults (bcrs_opwa,
+    C = 8, 4 rounds) through the round engine (``fl_round_run``: each
+    kernel launched leaves x rounds, wall, peak memory, the merge's
+    share, the losses per round) and through the mesh scan, whose one
+    captured CUDA graph a round holds the checkpointed backward
+    (``scan_against_round``: bit for bit against the round engine).
+    Returns the launches per kernel over the driven runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    t_phase = time.perf_counter()
+    total = dict(zero)
+    out = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    for arch in RECURRENT_ARCHS:
+        t_arch = time.perf_counter()
+        cfg0 = tr.TrainConfig(arch=arch, device="cuda")
+        model = Model(get_config(arch), device="cuda")
+        params = model.init(cfg0.seed)
+        items = eng.tree_items(params)
+        n_params = sum(p.numel() for _, p in items)
+        big = sum(1 for _, p in items if p.numel() >= TRAIN_MIN_LEAF)
+        batch = tr._batch(cfg0, model.cfg.vocab_size,
+                          np.random.default_rng(1), "cuda")
+        rec = dict(remat=model.cfg.remat, parameters=n_params,
+                   leaves=len(items), compressed_leaves=big)
+        rec["loss_reproducible"] = grad_reproducible(model, params, batch)
+        rec["remat_modes"] = remat_modes_bit_for_bit(arch, params, batch)
+        del params, items
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        res, run, counts = train_run(kern, zero, f"{arch} dense sgd", 0,
+                                     arch=arch, steps=TRAIN_STEPS)
+        add(counts)
+        step = gs.make_train_step(model, make_optimizer("sgd", cfg0.lr))
+        _, wall, by_name = device_profile(
+            lambda: step(res["params"], (), batch))
+        run["profile"] = busy_record(wall, by_name)
+        print(f"[profile train step] {arch}: {json.dumps(run['profile'])}")
+        rec["train dense sgd"] = run
+        del res, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        if arch == "hymba-1.5b":
+            label = f"{arch} bcrs_opwa {TRAIN_PODS} pods"
+            res, run, counts = train_run(kern, zero, label,
+                                         big * TRAIN_STEPS, arch=arch,
+                                         steps=TRAIN_STEPS,
+                                         compressed_pods=TRAIN_PODS)
+            add(counts)
+            check_ef(label, res["opt_state"]["ef"], embed_kept_whole=True)
+            train_routes(model, res["params"], res["opt_state"]["ef"],
+                         batch, res["pod_crs"], run)
+            rec[f"train {TRAIN_PODS} pods"] = run
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            cfg = fl.FLTrainConfig(arch=arch, engine="round", device="cuda",
+                                   rounds=FL_ROUNDS)
+            label = f"{arch} bcrs_opwa C={cfg.clients}"
+            leaves = rec["leaves"]
+            run, res, counts = fl_round_run(kern, zero, fl, cfg, leaves,
+                                            label)
+            add(counts)
+            ref = dict(executed_rounds=res["executed_rounds"],
+                       losses=res["losses"], params=host_copy(res["params"]),
+                       residuals=None)
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            scan, counts = scan_against_round(kern, zero, fl, cfg, ref,
+                                              leaves, n_params, label)
+            add(counts)
+            run["scan"] = scan
+            rec["fl_train"] = run
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
+        out[arch] = rec
+        del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["recurrent_train_phase"] = dict(
+        runs=out, seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    print(f"[recurrent train phase] {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {record['recurrent_train_phase']['launches']}")
+    return total
 
 
 def main() -> int:
@@ -3732,6 +3999,10 @@ def main() -> int:
         launches[name] += n
     recurrent_serve_phase(kern, {name: 0 for name in kern}, record,
                           args.profile)
+    rec_train_launches = recurrent_train_phase(
+        kern, {name: 0 for name in kern}, record)
+    for name, n in rec_train_launches.items():
+        launches[name] += n
     check(all(n > 0 for n in launches.values()),
           f"every kernel launched on its path: {launches}")
 
@@ -3759,6 +4030,9 @@ def main() -> int:
             extra["population_async_phase_launches"] = pop_launches[name]
         if train_launches[name]:
             extra["train_phase_launches"] = train_launches[name]
+        if rec_train_launches[name]:
+            extra["recurrent_train_phase_launches"] = rec_train_launches[
+                name]
         if fl_launches[name]:
             extra["fl_train_phase_launches"] = fl_launches[name]
             # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and

@@ -2,7 +2,8 @@
 where the card's time per round goes, by kernel, under ``torch.profiler``;
 with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
-    python3 round_times.py [--engine fused|scan] [--rows] [--src DIR]
+    python3 round_times.py [--engine fused|scan] [--rows]
+                           [--train | --prefill] [--arch ARCH] [--src DIR]
                            [--out PATH]
 
 For each of ``STRATEGIES``: ``run_fl(engine=...)`` ("fused" by default;
@@ -23,6 +24,22 @@ longer row [4, 262144]), at the default ratio's k, both row kernels held
 bit for bit against their twins, then timed with CUDA events beside the
 twin and ``torch.topk`` (``chip_smoke.row_kernel_rows``), and their device
 time a call under the profiler (``chip_smoke.row_kernel_device_ms``).
+
+``--train``: the real-model trainers at full width instead, for ``--arch``
+(stablelm-1.6b by default): ``launch.train`` at its CLI defaults (dense
+sgd, B = 8, S = 256, ``TRAIN_STEPS`` steps), then ``launch.fl_train`` at
+its defaults (bcrs_opwa, C = 8, ``FL_ROUNDS`` rounds) through the round
+engine and through the mesh scan; each run's wall a step or round as
+the launch module records it, its losses and its peak memory
+(``torch.cuda.max_memory_allocated``).
+
+``--prefill``: ``Model.prefill`` of ``--arch`` at full width instead
+(bf16, random weights from seed 0, B = ``PREFILL_BATCH`` x
+``PREFILL_TOKENS`` tokens, under ``torch.no_grad``): one warm call, then
+``PREFILL_REPEATS`` timed calls (host clock ending in a synchronize), the
+peak memory over them (``torch.cuda.max_memory_allocated``, the weights
+included) and a SHA-256 of the last call's logits, so two trees can be
+held to the same bits.
 
 ``--src`` names the ``src`` directory of the tree to time (default: this
 checkout's), so one card can time two trees in alternation: parent,
@@ -171,6 +188,68 @@ def row_times(src: str) -> dict:
     return out
 
 
+TRAIN_STEPS, FL_ROUNDS = 4, 4
+
+
+def train_times(src: str, arch: str) -> dict:
+    """``--train``: the trainers' wall, losses and peak memory."""
+    import gc
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.launch import train as tr
+    out = dict(src=src, gpu=torch.cuda.get_device_name(0), arch=arch)
+    runs = (("train", lambda: tr.run(tr.TrainConfig(
+                arch=arch, steps=TRAIN_STEPS, device="cuda")),
+             "wall_per_step"),
+            ("fl_round", lambda: fl.run(fl.FLTrainConfig(
+                arch=arch, rounds=FL_ROUNDS, engine="round",
+                device="cuda")), "wall_per_round"),
+            ("fl_scan", lambda: fl.run(fl.FLTrainConfig(
+                arch=arch, rounds=FL_ROUNDS, engine="scan",
+                device="cuda")), "wall_per_round"))
+    for name, fn, wall_key in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_s=res[wall_key], losses=res["losses"],
+                         peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del res
+    return out
+
+
+PREFILL_BATCH, PREFILL_TOKENS, PREFILL_REPEATS = 4, 2048, 5
+
+
+def prefill_times(src: str, arch: str) -> dict:
+    """``--prefill``: ``Model.prefill``'s wall a call and peak memory."""
+    import hashlib
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    model = Model(get_config(arch), device="cuda")
+    params = model.init(0)
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, (PREFILL_BATCH, PREFILL_TOKENS)),
+        device="cuda")
+    ms = []
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PREFILL_REPEATS):
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    digest = hashlib.sha256(logits.float().cpu().numpy().tobytes())
+    return dict(src=src, gpu=torch.cuda.get_device_name(0), arch=arch,
+                batch=PREFILL_BATCH, tokens=PREFILL_TOKENS, ms=ms,
+                median_ms=statistics.median(ms),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                logits_sha256=digest.hexdigest())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
@@ -178,6 +257,13 @@ def main() -> int:
     ap.add_argument("--engine", choices=("fused", "scan"), default="fused",
                     help="the round engine to time (the scan engine needs "
                          "a tree that has it)")
+    ap.add_argument("--train", action="store_true",
+                    help="time launch.train and launch.fl_train at full "
+                         "width, not the simulation's rounds")
+    ap.add_argument("--prefill", action="store_true",
+                    help="time Model.prefill at full width, not the rounds")
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    help="the model of --train or --prefill")
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -186,7 +272,14 @@ def main() -> int:
         return 1
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
-    out = row_times(src) if args.rows else round_times(src, args.engine)
+    if args.train:
+        out = train_times(src, args.arch)
+    elif args.prefill:
+        out = prefill_times(src, args.arch)
+    elif args.rows:
+        out = row_times(src)
+    else:
+        out = round_times(src, args.engine)
     line = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

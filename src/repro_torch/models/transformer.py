@@ -1,19 +1,20 @@
 """Decoder-only models: init, the training loss, prefill and cached decode.
 
 Port of ``repro.models.transformer.Model`` for three families:
-  * dense (stablelm, yi, qwen: MHA or GQA, optional QKV bias): init,
-    ``loss_fn``, ``prefill`` and KV-cache decode;
+  * dense (stablelm, yi, qwen: MHA or GQA, optional QKV bias);
   * hybrid (hymba: GQA sliding-window attention and a parallel SSD branch,
-    mixed as ``0.5 * (rms_norm(a) + rms_norm(s))``) and ssm (rwkv6:
-    time-mix and channel-mix blocks behind a layer norm): serving only
-    (``init``, ``init_cache``, ``decode_step``, ``prefill``); their
-    ``loss_fn`` raises until their training is ported (ROADMAP queue 1,
-    item 3a).
+    mixed as ``0.5 * (rms_norm(a) + rms_norm(s))``);
+  * ssm (rwkv6: time-mix and channel-mix blocks behind a layer norm);
+each with ``init``, ``loss_fn``, ``init_cache``, ``decode_step`` and
+``prefill``.
 Params are nested dicts whose layer stack carries a leading ``[L, ...]``
-axis; the forward walks it with a Python loop (no remat at inference). The
-caches are stacked ``[L, ...]`` too and written in place by
-``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``, for hybrid also
-``"ssm": {"conv", "state"}``, for ssm ``{"tm_x", "cm_x", "wkv"}``.
+axis; the forward walks it with a Python loop. Under autograd each block is
+checkpointed as ``cfg.remat`` says (``_remat``: "full", "dots" or
+"none"), as the reference wraps its scanned blocks; with grad mode off
+(serving) no block is. The caches are stacked ``[L, ...]`` too and written
+in place by ``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``, for
+hybrid also ``"ssm": {"conv", "state"}``, for ssm ``{"tm_x", "cm_x",
+"wkv"}``.
 
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
 in the reference. The moe, encdec and vlm families wait for their ROADMAP
@@ -22,9 +23,12 @@ built.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -36,6 +40,34 @@ from repro_torch.models.layers import (_dtype, apply_mlp, cross_entropy,
                                        pad_vocab, rms_norm)
 
 Params = Dict[str, Any]
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep what ``aten.mm`` computes, recompute the
+    rest. ``x @ W`` with a 2-D weight folds to ``mm``, so this keeps the
+    products with no batch dimension, as the reference's
+    ``dots_with_no_batch_dims_saveable``; attention's and GLA's batched
+    products (``bmm``) are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` checkpointed as the reference's ``_remat``: "none" returns it
+    unchanged, "dots" keeps the matmul outputs (``_save_mm``) and any
+    other mode recomputes the whole block in the backward. Non-reentrant,
+    so ``torch.autograd.grad`` works through it; no RNG state (nothing
+    draws randomness, and saving it would read the generator inside a CUDA
+    graph capture). A recompute runs the same ops on the same inputs, so
+    the three modes give the same bits."""
+    if mode == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_mm)
+    return functools.partial(checkpoint, fn, **kw)
 
 
 def layer_params(tree, i: int):
@@ -199,35 +231,35 @@ class Model:
         return x + rwkv6.apply_channel_mix(p["cm"], h)
 
     def _backbone(self, params, x, positions) -> torch.Tensor:
-        """Token embeddings -> final hidden states."""
+        """Token embeddings -> final hidden states. With grad mode on, each
+        block runs under ``_remat(..., cfg.remat)``."""
         cfg = self.cfg
         layers = unstack_layers(params["layers"], cfg.n_layers)
+        remat = cfg.remat if torch.is_grad_enabled() else "none"
         if cfg.family == "ssm":
             x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
+            body = _remat(self._rwkv_block_fwd, remat)
+            for p in layers:
+                x = body(p, x)
+            return x
+        body = _remat(self._block_fwd, remat)
         wins = self._window_flags()
         for i, p in enumerate(layers):
-            if cfg.family == "ssm":
-                x = self._rwkv_block_fwd(p, x)
-            else:
-                x = self._block_fwd(p, x, positions,
-                                    None if wins is None else wins[i])
+            x = body(p, x, positions, None if wins is None else wins[i])
         return x
 
     # ================================================================= losses
     def loss_fn(self, params, batch) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S])
-        -> ``(loss, {"ce": ce})``, as the reference's dense ``loss_fn``
-        (the MoE aux and MTP terms belong to families not ported yet). The
-        embedding is the one-hot contraction (``layers.embed_onehot``), so
-        the gradient is the same from run to run on the card. The hybrid
-        and ssm families raise: their training is not ported yet."""
+        -> ``(loss, {"ce": ce})``, the reference's loss for every family
+        outside encdec and vlm (the MoE aux and MTP terms belong to
+        families not ported yet). The embedding is the one-hot contraction
+        (``layers.embed_onehot``), so the gradient is the same from run to
+        run on the card. The ssm family's ``ln0`` is ``_backbone``'s; its
+        ``final_norm_b`` is read by nothing, so autograd gives it no
+        gradient (the trainers turn that into zeros, the reference's)."""
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: loss_fn of the {cfg.family} family is not "
-                "ported yet; the port serves it (ROADMAP queue 1, item 3a: "
-                "training the hybrid and ssm families)")
         tokens, labels = batch["tokens"], batch["labels"]
         x = embed_onehot(params["embed"]["w"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)

@@ -5,13 +5,16 @@ Every case runs in f32, in all four modes of the recurrence (scalar or
 vector decay, inclusive or exclusive; the rwkv bonus ``u`` in the
 vector-exclusive mode), with and without an initial state, over 1-3 chunks.
 
-Tolerance, one bound throughout: ``(c + Dk + 8) * 2^-24 * A`` per element
-(``gla.summation_bound``), with A the same recurrence in f64 on ``|r|,
-|k|, |v|`` (``|u|``, ``|s0|``) under the same decays. Every term of A is
-nonnegative, so A is the sum of the magnitudes of the products behind each
-output, and two f32 evaluations that differ only in summation order (a
-c-term intra-chunk sum, a Dk-term product with the carried state, a few
-roundings of the decays) stay within that many half-ULPs of it.
+Tolerance, one bound throughout: ``(c + Dk + 8) * 2^-24 * A + 2 (c + 1) *
+2^-24 * A_G`` per element (``gla.summation_bound``), with A the same
+recurrence in f64 on ``|r|, |k|, |v|`` (``|u|``, ``|s0|``) under the same
+decays. Every term of A is nonnegative, so A is the sum of the magnitudes
+of the products behind each output, and two f32 evaluations that differ
+only in summation order (a c-term intra-chunk sum, a Dk-term product with
+the carried state, a few roundings of the decays) stay within that many
+half-ULPs of it. A_G weights each product of A by the ``sum |g|`` (G) of
+the chunks it crosses: the rounding of the cumulative log-decays, each a
+c-term partial sum, whose difference sets each decay weight.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -148,12 +151,11 @@ def test_strong_decay_stays_finite(scalar):
     """rwkv-style strong decay (g near -10): the masked region is clamped
     before exp, so nothing overflows (all the reference's own test asks),
     and the result still agrees with the reference's recurrence. Here the
-    chunk's cumulative log-decay reaches G = 160, and its f32 rounding,
-    which the summation bound does not count, dominates: each weight
-    exp(qdec_i - cin_j) is the exp of a difference of two c-term sums of
-    |g|, each rounded to within (c + 1) * 2^-24 * G, so the weights, and
-    the terms of A, carry a relative error of up to 2 (c + 1) * 2^-24 * G
-    on top."""
+    chunk's cumulative log-decay reaches G = 160, and its f32 rounding
+    dominates the bound: each weight exp(qdec_i - cin_j) is the exp of a
+    difference of two c-term sums of |g|, each rounded to within
+    (c + 1) * 2^-24 * G, so the weights carry a relative error of up to
+    2 (c + 1) * 2^-24 * G, the bound's A_G term."""
     x = _inputs(60, 3, scalar, not scalar, True)
     x["g"] = np.full_like(x["g"], -10.0) + np.float32(0.01) * x["g"]
     inclusive = scalar
@@ -167,11 +169,8 @@ def test_strong_decay_stays_finite(scalar):
                                           u=jx["u"], inclusive=inclusive,
                                           initial_state=jx["s0"])
     bo, bs = _bounds(x, inclusive)
-    big_g = float(np.abs(x["g"]).reshape(B, H, 3, CHUNK, -1).sum(3).max())
-    extra = 2 * (CHUNK + 1) * 2.0 ** -24 * big_g / ((CHUNK + DK + 8) *
-                                                     2.0 ** -24)
-    _within(o_t, o_r, bo * (1 + extra))
-    _within(s_t, s_r, bs * (1 + extra))
+    _within(o_t, o_r, bo)
+    _within(s_t, s_r, bs)
 
 
 def test_chunked_gla_needs_whole_chunks():
@@ -182,32 +181,65 @@ def test_chunked_gla_needs_whole_chunks():
                           _torch(x["g"])[:, :, :12], chunk=CHUNK)
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-def test_summation_bound_is_the_abs_recurrence(mode):
-    """The bound's A, from an independent f64 loop in numpy."""
-    scalar, inclusive, with_u = MODES[mode]
-    x = _inputs(80, 1, scalar, with_u, True)
-    bo, bs = _bounds(x, inclusive)
+def _bound_by_terms(x, scalar, inclusive, chunk=CHUNK):
+    """``summation_bound`` from its definition, term by term in numpy f64:
+    each product behind an output (from s0, from an earlier token, the
+    bonus) with its decay weight exp(sum of g over the steps between),
+    its magnitude into A and, times the G of every chunk from its own to
+    the query's, into A_G."""
     r, k, v = (np.abs(x[n]).astype(np.float64) for n in "rkv")
     u = None if x["u"] is None else np.abs(x["u"]).astype(np.float64)
-    s = np.abs(x["s0"]).astype(np.float64)
+    s0 = np.abs(x["s0"]).astype(np.float64)
     g = x["g"].astype(np.float64)
-    outs = []
-    for t in range(r.shape[2]):
-        dec = np.exp(g[:, :, t])
-        dec = dec[..., None, None] if scalar else dec[..., :, None]
-        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
-        if inclusive:
-            s = dec * s + kv
-            outs.append(np.einsum("bhd,bhde->bhe", r[:, :, t], s))
-        else:
-            eff = s + (u[None, :, :, None] * kv if u is not None else 0.0)
-            outs.append(np.einsum("bhd,bhde->bhe", r[:, :, t], eff))
-            s = dec * s + kv
-    scale = (CHUNK + DK + 8) * 2.0 ** -24
-    np.testing.assert_allclose(bo.numpy(), np.stack(outs, 2) * scale,
-                               rtol=1e-12, atol=0)
-    np.testing.assert_allclose(bs.numpy(), s * scale, rtol=1e-12, atol=0)
+    if scalar:
+        g = np.repeat(g[..., None], r.shape[-1], axis=-1)
+    b, h, t, dk = r.shape
+    nc = -(-t // chunk)
+    lg = np.cumsum(g, axis=2)
+    gc = np.abs(g).reshape(b, h, nc, chunk, dk).sum(3)      # G per chunk
+    gcum = np.cumsum(gc, axis=2)
+    span = lambda m, n: gcum[:, :, n] - gcum[:, :, m] + gc[:, :, m]
+    mv = lambda coef, vec: coef[..., :, None] * vec[..., None, :]
+    a = np.zeros((b, h, t, v.shape[-1]))
+    a_g = np.zeros_like(a)
+    for i in range(t):
+        n = i // chunk
+        q = lg[:, :, i] if inclusive else lg[:, :, i] - g[:, :, i]
+        coef = r[:, :, i] * np.exp(q)
+        a[:, :, i] += np.einsum("bhd,bhde->bhe", coef, s0)
+        a_g[:, :, i] += np.einsum("bhd,bhde->bhe", coef * span(0, n), s0)
+        for j in range(i + 1 if inclusive else i):
+            coef = r[:, :, i] * k[:, :, j] * np.exp(q - lg[:, :, j])
+            a[:, :, i] += coef.sum(-1)[..., None] * v[:, :, j]
+            a_g[:, :, i] += (coef * span(j // chunk, n)).sum(-1)[
+                ..., None] * v[:, :, j]
+        if u is not None:
+            coef = r[:, :, i] * u[None] * k[:, :, i]
+            a[:, :, i] += coef.sum(-1)[..., None] * v[:, :, i]
+            a_g[:, :, i] += (coef * gc[:, :, n]).sum(-1)[..., None] * v[
+                :, :, i]
+    last = nc - 1
+    dec = np.exp(lg[:, :, -1])
+    s = (dec[..., None] * s0)
+    s_g = (dec * span(0, last))[..., None] * s0
+    for j in range(t):
+        coef = k[:, :, j] * np.exp(lg[:, :, -1] - lg[:, :, j])
+        s = s + mv(coef, v[:, :, j])
+        s_g = s_g + mv(coef * span(j // chunk, last), v[:, :, j])
+    scale, scale_g = (chunk + dk + 8) * 2.0 ** -24, 2 * (chunk + 1) * 2.0 ** -24
+    return a * scale + a_g * scale_g, s * scale + s_g * scale_g
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_summation_bound_is_the_abs_recurrence(mode):
+    """The bound's A and A_G, from an independent term-by-term sum in
+    numpy, over two chunks (so that products are carried across one)."""
+    scalar, inclusive, with_u = MODES[mode]
+    x = _inputs(80, 2, scalar, with_u, True)
+    bo, bs = _bounds(x, inclusive)
+    want_o, want_s = _bound_by_terms(x, scalar, inclusive)
+    np.testing.assert_allclose(bo.numpy(), want_o, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(bs.numpy(), want_s, rtol=1e-12, atol=0)
 
 
 def test_a_skipped_chunk_carry_fails_the_bound():

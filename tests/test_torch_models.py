@@ -650,15 +650,6 @@ def test_recurrent_trees_cross_bit_for_bit_in_bf16(arch):
     assert n_bf16 > 5
 
 
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_loss_fn_raises(arch):
-    model = Model(get_config(arch).reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3a"):
-        model.loss_fn(model.init(0), {
-            "tokens": torch.zeros((1, 16), dtype=torch.long),
-            "labels": torch.zeros((1, 16), dtype=torch.long)})
-
-
 def test_recurrent_prefill_needs_whole_chunks():
     """As the reference: a prompt that is not a multiple of the GLA chunk
     (16 at reduced size) is refused, not padded."""

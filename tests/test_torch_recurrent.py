@@ -468,10 +468,43 @@ def test_apply_ssm_bf16(monkeypatch):
     _bf16_within(got, want, 15, "bfloat16")
 
 
+class _ConvLog:
+    """A proxy of a module's array namespace (``torch`` in the port,
+    ``jnp`` in the reference) that logs the dtypes of what each
+    ``einsum`` is handed and of what each concatenation returns (the conv
+    history), and passes everything else through."""
+
+    def __init__(self, ns, log):
+        self._ns, self._log = ns, log
+
+    def __getattr__(self, name):
+        return getattr(self._ns, name)
+
+    def _dt(self, a):
+        return str(a.dtype).replace("torch.", "")
+
+    def einsum(self, spec, *ops):
+        self._log.append(("einsum", spec, [self._dt(a) for a in ops]))
+        return self._ns.einsum(spec, *ops)
+
+    def _concat(self, name, arrays, *args, **kw):
+        out = getattr(self._ns, name)(arrays, *args, **kw)
+        self._log.append(("history", self._dt(out)))
+        return out
+
+    def cat(self, arrays, *args, **kw):
+        return self._concat("cat", arrays, *args, **kw)
+
+    def concatenate(self, arrays, *args, **kw):
+        return self._concat("concatenate", arrays, *args, **kw)
+
+
 def test_decode_ssm_bf16(monkeypatch):
     """Six bf16 steps from a zero cache: outputs (R = 15), the f32 conv
-    history and state, and the dtypes handed to ``gla_decode``, against
-    the reference's."""
+    history and state, the dtypes handed to ``gla_decode``, and the dtypes
+    of the conv history and of the conv's ``einsum`` operands (f32 in the
+    reference: a conv run in bf16 would fit the bf16 bounds), against the
+    reference's."""
     cfg = HYMBA
     ssm_j = get_config_j("hymba-1.5b").reduced().ssm
     pt, pj = _ssm_bf16()
@@ -480,6 +513,9 @@ def test_decode_ssm_bf16(monkeypatch):
     log_t, log_j = [], []
     _record_gla(monkeypatch, mamba_t, log_t)
     _record_gla(monkeypatch, mamba_j, log_j)
+    conv_t, conv_j = [], []
+    monkeypatch.setattr(mamba_t, "torch", _ConvLog(torch, conv_t))
+    monkeypatch.setattr(mamba_j, "jnp", _ConvLog(jnp, conv_j))
     for step in range(6):
         x = jnp.asarray(_rand(25 + step, B, cfg.d_model), jnp.bfloat16)
         got, cache_t = mamba_t.decode_ssm(
@@ -490,6 +526,10 @@ def test_decode_ssm_bf16(monkeypatch):
                                            ssm_cfg=ssm_j)
         _bf16_within(got, want, 15, "bfloat16")
     assert log_t == log_j
+    assert conv_t == conv_j and conv_t[:2] == [
+        ("history", "float32"),
+        ("einsum", "bwc,wc->bc", ["float32", "float32"])], conv_t[:2]
+    assert len(conv_t) == 12
     _bf16_within(cache_t["conv"], cache_j["conv"], 15, "float32")
     _bf16_within(cache_t["state"], cache_j["state"], 15, "float32")
 
