@@ -106,9 +106,9 @@
    against the twin, masks, ks and EF residuals bitwise, agg within
    2*C*2^-24*gamma*sum|w v|); ``wire_cr = 1`` at 2 pods against the dense
    step over the same slices (EF exactly 0, params within the bound of
-   ``tests/test_torch_grad_sync.py``); adamw dense and at 2 pods and
-   qtopk (int8 codec stage) at 4 pods, 2 steps each and one profiled;
-   restarts at
+   ``tests/test_torch_grad_sync.py``); at ``CUT_LAYERS`` of the 24
+   layers (full width), adamw dense and at 2 pods and qtopk (int8 codec
+   stage) at 4 pods, 2 steps each and one profiled; restarts at
    ``reduced()`` size (dense adamw, compressed) equal to uninterrupted
    runs bit for bit;
 9. the serve phase (stablelm-1.6b at full width, bf16, random weights from
@@ -149,7 +149,8 @@
    bit; the loss and every gradient under ``remat`` "none", "full" and
    "dots", bit for bit, with each mode's peak memory; ``launch.train``
    dense sgd, 4 steps (no merge launch, wall a step, peak memory, a
-   profiled step); hymba only: ``--compressed-pods 4 --wire-cr 0.05``, 4
+   profiled step); hymba only, at ``CUT_LAYERS`` of its 32 layers (full
+   width): ``--compressed-pods 4 --wire-cr 0.05``, 4
    steps (``threshold_find`` and ``fused_merge`` once per leaf of at
    least 4096 elements a step, EF residuals nonzero there, the merge's ms
    a step, one step's pod gradients through both merge routes), and
@@ -158,7 +159,27 @@
    losses per round) and the mesh scan (one captured CUDA graph a round,
    the checkpointed backward inside it; bit for bit against the round
    engine);
-12. with ``--profile``, profiles 3 rounds of the fused and of the legacy
+12. the cross-attention phase (whisper-medium, encdec, and
+   llama-3.2-vision-11b, vlm, at full width, bf16, seed 0; the vlm's
+   cross gates set to 0.7 / -0.4, since at their initial zeros every cross
+   block is the identity): ``launch.serve.generate`` as in 9 (zero
+   launches; the cross caches stay zero, as the reference serves them),
+   decode ms a step beside its byte bound (the cross caches read whole),
+   3 decode steps under the profiler; ``Model.prefill`` at the model's
+   own shape (whisper: 1500 frames, 448 tokens; the vlm: 2048 tokens over
+   1024 patches); the params upcast to f32 (the vlm at 2 of its 8
+   groups), ``Model.prefill`` against the stepped decode over cross
+   caches filled here from the same frames or patches, within
+   ``6 * 2^-24 * sqrt(L * R * K) * rms(logits)``, the served decode (zero
+   cross caches) failing it; ``launch.train`` dense sgd 4 steps (both at
+   full depth) and ``--compressed-pods`` (whisper 4 at full depth, the vlm
+   2 at 2 of 8 groups) 4 steps, launches, wall, peak, the merge's ms;
+   whisper's gradient twice and under the three remat modes bit for bit;
+   one step's pod gradients through both merge routes and through
+   ``threshold_find`` / ``fused_merge`` against their twins, bit for bit,
+   on every compressed leaf (the vlm's ``[G, per, d, d_ff]`` ones
+   included); nothing left resident on the card before the vlm;
+13. with ``--profile``, profiles 3 rounds of the fused and of the legacy
    path, of the population engine and 3 flushes of the async engine
    (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
    parts: forward, backward, update) and 3 decode steps of each serve path
@@ -1489,27 +1510,44 @@ FL_ASYNC = dict(rounds=3, async_buffer_k=2, async_concurrency=2,
 
 #: the depth (layers) at which some earlier full-width paths run, at their
 #: full width, so that the whole script stays near its 600 s aim: the FL
-#: phase's eftopk C = 4 and fail-0.3 runs, the population run, and the
-#: recurrent families' f32 prefill-vs-decode check. What they hold (EF
-#: residuals, masked slots, the client store, the chunk carry) does not
-#: depend on the depth; the CLI-default runs stay at full depth.
+#: phase's eftopk C = 4 and fail-0.3 runs, the population run, the
+#: recurrent families' f32 prefill-vs-decode check, and hymba's compressed
+#: pods and ``fl_train`` (round engine and mesh scan). What they hold (EF
+#: residuals, masked slots, the client store, the chunk carry, the merge
+#: of every leaf, the scan bit-equal to the round engine) does not depend
+#: on the depth; stablelm's CLI-default runs and every family's dense
+#: ``train`` stay at full depth.
 CUT_LAYERS = 8
 
 
 def cut_config(cfg, n_layers: int):
     """``cfg`` with its first ``n_layers`` layers (and the global-attention
-    layers among them)."""
+    layers among them); encdec's encoder cut to as many layers, vlm's
+    groups to those of its first ``n_layers`` self layers (a whole number
+    of groups)."""
     import dataclasses
-    return dataclasses.replace(cfg, n_layers=n_layers, global_layers=tuple(
+    kw = dict(n_layers=n_layers, global_layers=tuple(
         g for g in cfg.global_layers if g < n_layers))
+    if cfg.encdec is not None:
+        kw["encdec"] = dataclasses.replace(
+            cfg.encdec, n_enc_layers=min(n_layers, cfg.encdec.n_enc_layers))
+    if cfg.vision is not None:
+        per = cfg.n_layers // cfg.vision.n_cross_layers
+        check(n_layers % per == 0, f"{cfg.name}: a cut of {n_layers} self "
+              f"layers is a whole number of groups of {per}")
+        kw["vision"] = dataclasses.replace(cfg.vision,
+                                           n_cross_layers=n_layers // per)
+    return dataclasses.replace(cfg, **kw)
 
 
 @contextlib.contextmanager
 def at_depth(n_layers):
-    """``get_config`` as ``launch.fl_train`` and the checks' helpers read
-    it, with ``n_layers`` layers (no change for None)."""
+    """``get_config`` as ``launch.fl_train``, ``launch.train`` and the
+    checks' helpers read it, with ``n_layers`` layers (no change for
+    None)."""
     import repro_torch.configs as configs
     from repro_torch.launch import fl_train as fl
+    from repro_torch.launch import train as tr
     if n_layers is None:
         yield
         return
@@ -1517,23 +1555,36 @@ def at_depth(n_layers):
 
     def cut(arch):
         return cut_config(full(arch), n_layers)
-    configs.get_config = fl.get_config = cut
+    configs.get_config = fl.get_config = tr.get_config = cut
     try:
         yield
     finally:
-        configs.get_config = fl.get_config = full
+        configs.get_config = fl.get_config = tr.get_config = full
+
+
+def first_rows(tree, n: int):
+    """The first ``n`` entries of every leaf's leading axis (views)."""
+    if isinstance(tree, dict):
+        return {k: first_rows(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def cut_model(model, params, n_layers):
-    """The first ``n_layers`` layers of a stacked model (views) and its
-    config's model."""
+    """The first ``n_layers`` layers of a stacked model (views), its
+    encoder's first as many, or its first groups (vlm), and its config's
+    model."""
     from repro_torch.models import Model
-    def first(tree):
-        if isinstance(tree, dict):
-            return {k: first(v) for k, v in tree.items()}
-        return tree[:n_layers]
     cut = Model(cut_config(model.cfg, n_layers), device="cuda")
-    return cut, dict(params, layers=first(params["layers"]))
+    out = dict(params)
+    if "layers" in params:
+        out["layers"] = first_rows(params["layers"], n_layers)
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"], layers=first_rows(
+            params["encoder"]["layers"], cut.cfg.encdec.n_enc_layers))
+    if "groups" in params:
+        out["groups"] = first_rows(params["groups"],
+                                   cut.cfg.vision.n_cross_layers)
+    return cut, out
 
 
 def big_leaf_case(c: int, n: int, seed: int, ef: bool):
@@ -2400,11 +2451,13 @@ def check_ef(label, ef, embed_kept_whole: bool):
 
 
 def train_run(kern, zero, label, merges, **kw):
-    """``launch.train.run`` at stablelm-1.6b's full width, the counts set
-    to 0 just before and read just after: the steps run, finite losses,
-    ``merges`` launches of each merge kernel, the wall a step, peak memory
-    and, from CUDA events around each leaf's ``compress_merge_leaf``, the
-    merge's ms a step. Returns (the run's result, its record, counts)."""
+    """``launch.train.run`` at full width (stablelm-1.6b unless ``kw``
+    names an arch), the counts set to 0 just before and read just after:
+    the steps run, finite losses, ``merges`` launches of each merge kernel
+    (None: one per leaf of at least ``TRAIN_MIN_LEAF`` elements a step),
+    the wall a step, peak memory and, from CUDA events around each leaf's
+    ``compress_merge_leaf``, the merge's ms a step. Returns (the run's
+    result, its record, counts)."""
     import gc
     from repro_torch.dist import grad_sync as gs
     from repro_torch.launch import train as tr
@@ -2422,6 +2475,10 @@ def train_run(kern, zero, label, merges, **kw):
     peak = torch.cuda.max_memory_allocated()
     steps = len(res["steps_run"])
     check(steps == cfg.steps, f"train {label}: steps run")
+    big = sum(1 for _, p in gs.tree_items(res["params"])
+              if p.numel() >= TRAIN_MIN_LEAF)
+    if merges is None:
+        merges = big * steps
     check(all(math.isfinite(v) for v in res["losses"]),
           f"train {label}: finite losses {res['losses']}")
     check_counts(counts, dict(zero, threshold_find=merges,
@@ -2432,6 +2489,7 @@ def train_run(kern, zero, label, merges, **kw):
                     events[i * per:(i + 1) * per]) for i in range(steps)]
     wall = res["wall_per_step"]
     rec = dict(config=kw, losses=res["losses"], wall_per_step_s=wall,
+               compressed_leaves=big if cfg.compressed_pods else 0,
                first_step_s=wall[0], later_steps_s=wall[1:],
                merge_ms_per_step=merge_ms,
                merge_share=[m / 1e3 / t for m, t in zip(merge_ms, wall)],
@@ -2446,11 +2504,14 @@ def train_run(kern, zero, label, merges, **kw):
     return res, rec, counts
 
 
-def train_routes(model, params, ef, batch, pod_crs, record):
-    """One step's pod gradients from the compressed run's final state
-    through both routes of ``compress_merge_leaf``, leaf by leaf
+def train_routes(model, params, ef, batch, pod_crs, record,
+                 pods=TRAIN_PODS, twins=False):
+    """One step's ``pods`` pod gradients from the compressed run's final
+    state through both routes of ``compress_merge_leaf``, leaf by leaf
     (``routes_on_leaf``): thresholds, masks, ks and EF residuals bit for
-    bit, agg within 2*C*2^-24*gamma*sum|w v|."""
+    bit, agg within 2*C*2^-24*gamma*sum|w v|. With ``twins``, also
+    ``threshold_find`` and ``fused_merge`` against their twins on each
+    leaf, bit for bit (``merge_twins_on_leaf``)."""
     from repro_torch.core import compression as comp
     from repro_torch.core.strategies import get as get_strategy
     from repro_torch.dist import grad_sync as gs
@@ -2459,10 +2520,11 @@ def train_routes(model, params, ef, batch, pod_crs, record):
     wire = np.float32(tr.TrainConfig().wire_cr)
     crs_np = np.clip(np.asarray(pod_crs, np.float32), 0.0, wire)
     crs = torch.from_numpy(crs_np).cuda()
-    w = torch.full((TRAIN_PODS,), 1.0 / TRAIN_PODS, device="cuda")
+    n_pods = pods
+    w = torch.full((n_pods,), 1.0 / n_pods, device="cuda")
     strat = get_strategy("bcrs_opwa")
-    pods, _, _ = gs.pod_gradients(model.loss_fn, params, batch, TRAIN_PODS)
-    worst_agg, worst_ratio, leaves = 0.0, 0.0, 0
+    pods, _, _ = gs.pod_gradients(model.loss_fn, params, batch, n_pods)
+    worst_agg, worst_ratio, leaves, shapes = 0.0, 0.0, 0, set()
     for i, ((path, p), (_, e)) in enumerate(zip(eng.tree_items(params),
                                                 eng.tree_items(ef))):
         dl, pods[i] = pods[i], None
@@ -2473,6 +2535,9 @@ def train_routes(model, params, ef, batch, pod_crs, record):
         want_ks = np.clip(np.round(crs_np * np.float32(n)), 1, n)
         check(np.array_equal(ks.cpu().numpy(), want_ks.astype(np.int32)),
               f"train ks of {path}")
+        if twins:
+            merge_twins_on_leaf(path, dl, e, w, ks)
+            shapes.add(tuple(p.shape))
         agg_k, agg_p, d_max, ratio = routes_on_leaf(
             path, dl, e, w, ks, None, strat, tr.GAMMA, 1)
         del dl, agg_k, agg_p
@@ -2480,12 +2545,41 @@ def train_routes(model, params, ef, batch, pod_crs, record):
         worst_agg = max(worst_agg, d_max)
         worst_ratio = max(worst_ratio, ratio)
         leaves += 1
-    out = dict(pods=TRAIN_PODS, leaves=leaves, max_abs_agg_diff=worst_agg,
+    out = dict(pods=n_pods, leaves=leaves, max_abs_agg_diff=worst_agg,
                max_agg_diff_over_bound=worst_ratio)
+    if twins:
+        out["kernels_bitwise_against_twins_on_leaf_shapes"] = sorted(shapes)
     record["routes"] = out
-    print(f"[train routes] bcrs_opwa {TRAIN_PODS} pods: {leaves} leaves, "
+    print(f"[train routes] bcrs_opwa {n_pods} pods: {leaves} leaves, "
           f"thresholds, masks, ks and residuals bitwise; agg max |d| "
-          f"{worst_agg:.3g} ({worst_ratio:.3g} of its bound)")
+          f"{worst_agg:.3g} ({worst_ratio:.3g} of its bound)"
+          + (f"; both kernels bitwise against their twins on "
+             f"{len(shapes)} leaf shapes" if twins else ""))
+
+
+def merge_twins_on_leaf(path, dl, res, w, ks):
+    """One leaf's ``[C, *leaf]`` pod gradients and EF residuals through
+    ``threshold_find`` and ``fused_merge`` (OPWA, the trainer's gamma, D =
+    1) and through their twins: thresholds, aggregate and new residuals
+    bit for bit. These launches are comparisons, made outside any counted
+    run."""
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import threshold_find as tf
+    from repro_torch.launch import train as tr
+    c = dl.shape[0]
+    x = dl.float().reshape(c, -1)
+    r = res.reshape(c, -1)
+    th = tf.threshold_find(x, ks, r)
+    tp = tf.threshold_find_plain(x, ks.to(torch.int32), r)
+    check(torch.equal(th, tp),
+          f"threshold_find on {path} {list(dl.shape)}: the twin's")
+    kw = dict(opwa=True, gamma=tr.GAMMA, d=1, codec="none", scales=None)
+    got = fm.fused_merge(x, th, w, r, None, **kw)
+    want = fm.fused_merge_plain(x, th, w, r, None, **kw)
+    check(all(bits_equal(a, b) for a, b in zip(got, want)),
+          f"fused_merge on {path} {list(dl.shape)}: the twin's bits")
+    del x, th, got, want
+    torch.cuda.empty_cache()
 
 
 def train_wire_cr_one(model, params, batch, record):
@@ -2566,6 +2660,104 @@ def train_restarts_reduced():
               f"steps bit for bit")
 
 
+def other_optimizers(kern, zero, big, batch, coeffs, runs, add,
+                     profile_step):
+    """``train_phase``'s adamw (dense and at 2 pods) and qtopk (4 pods)
+    runs, at the depth ``at_depth`` sets (``CUT_LAYERS``, full width): 2
+    steps each and one more profiled (what they hold, the optimizer state
+    and the codec stage on every compressed leaf, does not depend on the
+    depth)."""
+    import gc
+    import repro_torch.configs as configs
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    cfg0 = tr.TrainConfig(device="cuda")
+    model = Model(configs.get_config(cfg0.arch), device="cuda")
+    sgd = make_optimizer("sgd", cfg0.lr)
+    adamw = make_optimizer("adamw", cfg0.lr)
+    for label, merges, kw in (
+            ("dense adamw", 0, dict(optimizer="adamw")),
+            (f"adamw {TRAIN_ADAMW_PODS} pods", big * 2,
+             dict(optimizer="adamw", compressed_pods=TRAIN_ADAMW_PODS))):
+        res, rec, counts = train_run(kern, zero, label, merges, steps=2,
+                                     **kw)
+        add(counts)
+        params, state = res["params"], res["opt_state"]
+        if "compressed_pods" in kw:
+            c = kw["compressed_pods"]
+            step = gs.make_compressed_train_step(
+                model, adamw, n_pods=c, wire_cr=cfg0.wire_cr,
+                gamma=tr.GAMMA)
+            crs = torch.from_numpy(np.asarray(res["pod_crs"],
+                                              np.float32)).cuda()
+            w = torch.full((c,), 1.0 / c, device="cuda")
+            rec["profile"] = profile_step(
+                lambda: step(params, state, batch, crs, w), rec)
+        else:
+            step = gs.make_train_step(model, adamw)
+            rec["profile"] = profile_step(lambda: step(params, state, batch),
+                                          rec)
+        rec["n_layers"] = model.cfg.n_layers
+        runs[label] = rec
+        del res, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # qtopk at 4 pods (fused_merge's int8 codec stage): 2 steps driven,
+    # then one profiled
+    label = f"qtopk {TRAIN_PODS} pods"
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg0.seed)
+    state = gs.init_compressed_state(sgd, params, n_pods=TRAIN_PODS)
+    step = gs.make_compressed_train_step(
+        model, sgd, n_pods=TRAIN_PODS, wire_cr=cfg0.wire_cr, gamma=tr.GAMMA,
+        strategy="qtopk")
+    crs = torch.full((TRAIN_PODS,), cfg0.wire_cr, device="cuda")
+    events, walls, losses = [], [], []
+
+    def qtopk_steps():
+        nonlocal params, state
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, crs, coeffs)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+    merge = gs.compress_merge_leaf
+    gs.compress_merge_leaf = timed_merge(merge, events)
+    try:
+        _, counts = drive(kern, qtopk_steps)
+    finally:
+        gs.compress_merge_leaf = merge
+    add(counts)
+    check_counts(counts, dict(zero, threshold_find=2 * big,
+                              fused_merge=2 * big), f"train {label}")
+    check(all(math.isfinite(v) for v in losses),
+          f"train {label}: finite losses {losses}")
+    check_ef("qtopk", state["ef"], embed_kept_whole=False)
+    merge_ms = [sum(s.elapsed_time(e) for s, e in events[i * big:
+                                                         (i + 1) * big])
+                for i in range(2)]
+    rec = dict(losses=losses, wall_per_step_s=walls, first_step_s=walls[0],
+               later_steps_s=walls[1:], merge_ms_per_step=merge_ms,
+               merge_share=[m / 1e3 / t for m, t in zip(merge_ms, walls)],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=counts, n_layers=model.cfg.n_layers)
+    rec["profile"] = profile_step(
+        lambda: step(params, state, batch, crs, coeffs), rec)
+    runs[label] = rec
+    print(f"[train] {label}: losses {losses}; wall a step (s) {walls}; "
+          f"merge {[round(m, 2) for m in merge_ms]} ms a step; peak "
+          f"{rec['peak_memory_bytes'] / 1e9:.2f} GB")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_phase(kern, zero, record):
     """Centralised training (``launch.train``) at stablelm-1.6b's full width
     on the card, the CLI's defaults (B = 8, S = 256, lr 1e-2, seed 0): (1)
@@ -2576,8 +2768,9 @@ def train_phase(kern, zero, record):
     ms a step and one more step under the profiler (device idle share);
     (3) one step's pod gradients through both routes
     (``train_routes``); (4) ``wire_cr = 1`` against the dense step
-    (``train_wire_cr_one``); (5) adamw: dense and compressed at 2 pods, 2
-    steps each, and qtopk (int8 codec stage) at 4 pods, 2 steps; each
+    (``train_wire_cr_one``); (5) at ``CUT_LAYERS`` of the 24 layers (full
+    width; ``other_optimizers``): adamw, dense and compressed at 2 pods,
+    2 steps each, and qtopk (int8 codec stage) at 4 pods, 2 steps; each
     with one more step profiled; (6)
     restarts at ``reduced()`` size (``train_restarts_reduced``). Returns
     the launches per kernel over the driven runs."""
@@ -2593,7 +2786,7 @@ def train_phase(kern, zero, record):
     runs = {}
     cfg0 = tr.TrainConfig(device="cuda")
     model = Model(get_config(cfg0.arch), device="cuda")
-    batch = tr._batch(cfg0, model.cfg.vocab_size, np.random.default_rng(1),
+    batch = tr._batch(cfg0, model.cfg, np.random.default_rng(1),
                       "cuda")
     sgd = make_optimizer("sgd", cfg0.lr)
 
@@ -2652,85 +2845,9 @@ def train_phase(kern, zero, record):
     gc.collect()
     torch.cuda.empty_cache()
 
-    adamw = make_optimizer("adamw", cfg0.lr)
-    for label, merges, kw in (
-            ("dense adamw", 0, dict(optimizer="adamw")),
-            (f"adamw {TRAIN_ADAMW_PODS} pods", big * 2,
-             dict(optimizer="adamw", compressed_pods=TRAIN_ADAMW_PODS))):
-        res, rec, counts = train_run(kern, zero, label, merges, steps=2,
-                                     **kw)
-        add(counts)
-        params, state = res["params"], res["opt_state"]
-        if "compressed_pods" in kw:
-            c = kw["compressed_pods"]
-            step = gs.make_compressed_train_step(
-                model, adamw, n_pods=c, wire_cr=cfg0.wire_cr,
-                gamma=tr.GAMMA)
-            crs = torch.from_numpy(np.asarray(res["pod_crs"],
-                                              np.float32)).cuda()
-            w = torch.full((c,), 1.0 / c, device="cuda")
-            rec["profile"] = profile_step(
-                lambda: step(params, state, batch, crs, w), rec)
-        else:
-            step = gs.make_train_step(model, adamw)
-            rec["profile"] = profile_step(lambda: step(params, state, batch),
-                                          rec)
-        runs[label] = rec
-        del res, params, state, step
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    # qtopk at 4 pods (fused_merge's int8 codec stage): 2 steps driven,
-    # then one profiled
-    label = f"qtopk {TRAIN_PODS} pods"
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init(cfg0.seed)
-    state = gs.init_compressed_state(sgd, params, n_pods=TRAIN_PODS)
-    step = gs.make_compressed_train_step(
-        model, sgd, n_pods=TRAIN_PODS, wire_cr=cfg0.wire_cr, gamma=tr.GAMMA,
-        strategy="qtopk")
-    crs = torch.full((TRAIN_PODS,), cfg0.wire_cr, device="cuda")
-    events, walls, losses = [], [], []
-
-    def qtopk_steps():
-        nonlocal params, state
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, state, m = step(params, state, batch, crs, coeffs)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-
-    merge = gs.compress_merge_leaf
-    gs.compress_merge_leaf = timed_merge(merge, events)
-    try:
-        _, counts = drive(kern, qtopk_steps)
-    finally:
-        gs.compress_merge_leaf = merge
-    add(counts)
-    check_counts(counts, dict(zero, threshold_find=2 * big,
-                              fused_merge=2 * big), f"train {label}")
-    check(all(math.isfinite(v) for v in losses),
-          f"train {label}: finite losses {losses}")
-    check_ef("qtopk", state["ef"], embed_kept_whole=False)
-    merge_ms = [sum(s.elapsed_time(e) for s, e in events[i * big:
-                                                         (i + 1) * big])
-                for i in range(2)]
-    rec = dict(losses=losses, wall_per_step_s=walls, first_step_s=walls[0],
-               later_steps_s=walls[1:], merge_ms_per_step=merge_ms,
-               merge_share=[m / 1e3 / t for m, t in zip(merge_ms, walls)],
-               peak_memory_bytes=torch.cuda.max_memory_allocated(),
-               launches=counts)
-    rec["profile"] = profile_step(
-        lambda: step(params, state, batch, crs, coeffs), rec)
-    runs[label] = rec
-    print(f"[train] {label}: losses {losses}; wall a step (s) {walls}; "
-          f"merge {[round(m, 2) for m in merge_ms]} ms a step; peak "
-          f"{rec['peak_memory_bytes'] / 1e9:.2f} GB")
-    del params, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
+    with at_depth(CUT_LAYERS):
+        other_optimizers(kern, zero, big, batch, coeffs, runs, add,
+                         profile_step)
 
     train_restarts_reduced()
     record["train_phase"] = dict(
@@ -3015,7 +3132,18 @@ LOGIT_R, LOGIT_Z = 17, 6.0
 #: its bf16 gap (0.93) is as large as its logits' rms, so no bf16 bound
 #: that holds could tell a right cache from a wrong one. Their
 #: discriminating check is in f32 (``LOGIT32_K``); the bf16 gap is recorded.
-LOGIT_ROUNDINGS = {"dense": LOGIT_R, "hybrid": 35, "ssm": 48}
+#: encdec 21 a decoder block (self-attention 8: ln1, q, k, v, the
+#: probabilities, the output, wo, the residual add; cross-attention 8, the
+#: same from lnx; the MLP 5: ln2, up, gelu, down, the residual add), vlm
+#: 17 a block (a self block's are the dense family's; a cross block's:
+#: ln1, q, k, v, the probabilities, the output, wo, the gate's product,
+#: the residual add, ln2, up, gate, silu, the gated product, down, the
+#: gate's product, the residual add); tests/test_torch_cross.py counts
+#: the same. Their check is in f32 too (``cross_prefill_f32``): the served
+#: decode reads zero cross caches, so its bf16 gap to a prefill that reads
+#: the frames or patches says nothing.
+LOGIT_ROUNDINGS = {"dense": LOGIT_R, "hybrid": 35, "ssm": 48, "encdec": 21,
+                   "vlm": 17}
 #: f32 prefill against the f32 stepped decode, the bf16 params upcast (the
 #: same weights, exactly) and an f32 cache. The two paths run the same
 #: elementwise ops on the same inputs, which round alike; they differ only
@@ -3384,40 +3512,53 @@ def nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def decode_bound_ms(model, params, batch, positions):
+def decode_bound_ms(model, params, batch, positions, cache_len=None):
     """Bytes a decode step must move at cache length ``positions`` (mean
-    over the timed steps), over the HBM rate: every weight but the
-    embedding table (of which B rows), the K and V cache up to the
+    over the timed steps), over the HBM rate: every weight a step reads
+    (all but the embedding table, of which B rows, and the encoder and
+    ``vis_proj``, which decode never reads), the K and V cache up to the
     position (each layer's window at most) and the new K/V entries, the
-    recurrent state (hymba's conv history and SSM state, rwkv's token
-    shifts and wkv state), read once and written once, and the logits.
-    Returns (ms, total bytes, state bytes)."""
+    cross caches read whole (encdec's ``cache_len`` positions, vlm's
+    patches), the recurrent state (hymba's conv history and SSM state,
+    rwkv's token shifts and wkv state), read once and written once, and
+    the logits. Returns (ms, total bytes, state bytes)."""
     cfg = model.cfg
     emb = params["embed"]["w"]
-    weights = nbytes(params) - nbytes(emb) + batch * emb.shape[1] * \
+    unread = nbytes(emb) + sum(nbytes(params[k]) for k in ("encoder",
+                                                           "vis_proj")
+                               if k in params)
+    weights = nbytes(params) - unread + batch * emb.shape[1] * \
         emb.element_size()
-    kv = 0
+    kv = cross = 0
     if cfg.family != "ssm":
         entry = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
         wins = model._window_flags() or [positions + 1] * cfg.n_layers
         kv = sum(entry * min(positions + 1, w) for w in wins)
+        if cfg.family == "encdec":
+            cross = entry * cache_len * cfg.n_layers
+        elif cfg.family == "vlm":
+            cross = entry * cfg.vision.n_patches * cfg.vision.n_cross_layers
     one = model.init_cache(batch, 1)
-    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v") if k in one)
+    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v", "ck", "cv")
+                              if k in one)
     del one
-    total = weights + kv + 2 * state + batch * model.v_pad * 2
+    total = weights + kv + cross + 2 * state + batch * model.v_pad * 2
     return total / HBM_BYTES_PER_S * 1e3, total, state
 
 
-def timed_prefill(kern, zero, model, params, prompt):
+def timed_prefill(kern, zero, model, params, prompt, memory=None):
     """``Model.prefill`` once to warm, then once timed (host clock ending
     in a synchronize), the launch counters reset just before and read just
-    after both (zero: no kernel on this path). Returns (logits, cache, ms)."""
+    after both (zero: no kernel on this path); ``memory`` holds the cross
+    families' frames or patches. Returns (logits, cache, ms)."""
+    batch = dict(memory or {}, tokens=prompt)
+
     def run():
         with torch.no_grad():
-            model.prefill(params, {"tokens": prompt})
+            model.prefill(params, batch)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pf, cache = model.prefill(params, {"tokens": prompt})
+            pf, cache = model.prefill(params, batch)
             torch.cuda.synchronize()
             return pf, cache, (time.perf_counter() - t0) * 1e3
 
@@ -3434,10 +3575,15 @@ def serve_path(kern, zero, model, params, record, key="serve"):
     GLA plain torch, as in the reference); ``Model.prefill`` over the same
     prompt against the decode logits after the last prompt token: for the
     dense family within ``logit_tolerance``, for hybrid and ssm recorded
-    (their check is ``prefill_vs_decode_f32``)."""
+    (their check is ``prefill_vs_decode_f32``). The cross families'
+    prefill reads frames or patches (``cross_memory``) that the served
+    decode never sees (its cross caches stay zero, as in the reference),
+    so their gap is not recorded; their check is ``cross_prefill_f32``."""
     from repro_torch.launch.serve import generate
     cfg = model.cfg
     dense = cfg.family == "dense"
+    cross = cfg.family in CROSS_FAMILIES
+    memory = cross_memory(cfg, SERVE_BATCH, 3) if cross else None
     prompt = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (SERVE_BATCH, PROMPT)), device="cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -3449,7 +3595,9 @@ def serve_path(kern, zero, model, params, record, key="serve"):
     check(bool(torch.isfinite(res["logits"]).all())
           and bool(torch.isfinite(res["prompt_logits"]).all()),
           f"{cfg.name} serve: finite logits")
-    pf, cache, prefill_ms = timed_prefill(kern, zero, model, params, prompt)
+    pf, cache, prefill_ms = timed_prefill(kern, zero, model, params, prompt,
+                                          memory)
+    del memory
     check(cache is None, "prefill returns no cache (as the reference)")
     check(bool(torch.isfinite(pf).all()), f"{cfg.name} prefill: finite")
     dec = res["prompt_logits"][:, :cfg.vocab_size].float()
@@ -3468,7 +3616,7 @@ def serve_path(kern, zero, model, params, record, key="serve"):
               "margin exceeds 2 * tol")
     step_ms = res["t_gen"] / (GEN - 1) * 1e3
     bound_ms, step_bytes, state_bytes = decode_bound_ms(
-        model, params, SERVE_BATCH, PROMPT + GEN // 2)
+        model, params, SERVE_BATCH, PROMPT + GEN // 2, PROMPT + GEN)
     out = dict(
         arch=cfg.name, batch=SERVE_BATCH, prompt=PROMPT, gen=GEN,
         n_params=cfg.n_params(), launches=counts,
@@ -3485,6 +3633,14 @@ def serve_path(kern, zero, model, params, record, key="serve"):
     if dense:
         out.update(logit_tol=tol, logit_tol_formula=(
             f"6 * 2^-8 * sqrt(L * {LOGIT_R}) * rms(logits)"))
+    elif cross:
+        for k in ("prefill_vs_decode_max_abs", "argmax_agree",
+                  "top2_margin"):
+            del out[k]
+        torch.cuda.empty_cache()
+        out["f32"] = cross_prefill_f32(
+            kern, zero, *cut_model(model, params, CROSS_F32_LAYERS[
+                cfg.family] or cfg.n_layers))
     else:
         out["bf16_gap_over_dense_form"] = diff / tol
         torch.cuda.empty_cache()
@@ -3495,9 +3651,10 @@ def serve_path(kern, zero, model, params, record, key="serve"):
           f"Model.prefill {prefill_ms:.2f} ms, decode "
           f"{step_ms:.3f} ms a step (bound {bound_ms:.3f} ms, "
           f"{step_bytes / 1e9:.3f} GB), {out['tokens_per_s']:.1f} tok/s; "
-          f"peak {peak_gb:.2f} GB; bf16 prefill vs decode max |d| "
-          f"{diff:.4g} (rms {out['logits_rms']:.4g}; "
-          + (f"tol {tol:.4g})" if dense else "recorded)"))
+          f"peak {peak_gb:.2f} GB"
+          + ("" if cross else f"; bf16 prefill vs decode max |d| "
+             f"{diff:.4g} (rms {out['logits_rms']:.4g}; "
+             + (f"tol {tol:.4g})" if dense else "recorded)")))
     record[key] = out
     return out
 
@@ -3779,6 +3936,58 @@ def remat_modes_bit_for_bit(arch, params, batch):
     return out
 
 
+def hymba_at_depth(kern, zero, arch, batch, leaves, add):
+    """hymba's compressed pods and ``fl_train`` at the depth ``at_depth``
+    sets (``CUT_LAYERS``, full width): ``train --compressed-pods 4
+    --wire-cr 0.05``, 4 steps (each merge kernel once per leaf of at least
+    4096 elements a step, EF residuals nonzero there, the merge's ms a
+    step, one step's pod gradients through both merge routes), then
+    ``fl_train`` at its defaults (bcrs_opwa, C = 8, 4 rounds) through the
+    round engine and through the mesh scan, bit for bit. Returns the
+    records by run."""
+    import gc
+    import repro_torch.configs as configs
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.models import Model
+    out = {}
+    model = Model(configs.get_config(arch), device="cuda")
+    label = f"{arch} bcrs_opwa {TRAIN_PODS} pods"
+    res, run, counts = train_run(kern, zero, label, None, arch=arch,
+                                 steps=TRAIN_STEPS,
+                                 compressed_pods=TRAIN_PODS)
+    add(counts)
+    check_ef(label, res["opt_state"]["ef"], embed_kept_whole=True)
+    train_routes(model, res["params"], res["opt_state"]["ef"], batch,
+                 res["pod_crs"], run)
+    run["n_layers"] = model.cfg.n_layers
+    out[f"train {TRAIN_PODS} pods"] = run
+    del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = fl.FLTrainConfig(arch=arch, engine="round", device="cuda",
+                           rounds=FL_ROUNDS)
+    label = f"{arch} bcrs_opwa C={cfg.clients}"
+    run, res, counts = fl_round_run(kern, zero, fl, cfg, leaves, label)
+    add(counts)
+    n_params = sum(p.numel() for _, p in eng.tree_items(res["params"]))
+    ref = dict(executed_rounds=res["executed_rounds"], losses=res["losses"],
+               params=host_copy(res["params"]), residuals=None)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan, counts = scan_against_round(kern, zero, fl, cfg, ref, leaves,
+                                      n_params, label)
+    add(counts)
+    run.update(scan=scan, n_layers=configs.get_config(arch).n_layers)
+    out["fl_train"] = run
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def recurrent_train_phase(kern, zero, record):
     """Training the hybrid (hymba-1.5b) and ssm (rwkv6-1.6b) families at
     full width on the card (bf16, seed 0, the config's ``remat``,
@@ -3790,8 +3999,9 @@ def recurrent_train_phase(kern, zero, record):
     peak memory (``remat_modes_bit_for_bit``); (3) ``train.run``, 4 steps,
     counts set to 0 just before and read just after: finite losses, no
     merge launch, the wall a step (first apart), peak memory, and one more
-    step under the profiler (device idle share). hymba only: (4) ``train
-    --compressed-pods 4 --wire-cr 0.05``, 4 steps: each merge kernel
+    step under the profiler (device idle share). hymba only, at
+    ``CUT_LAYERS`` of its 32 layers (full width; ``hymba_at_depth``): (4)
+    ``train --compressed-pods 4 --wire-cr 0.05``, 4 steps: each merge kernel
     launched once per leaf of at least 4096 elements a step, EF residuals
     nonzero on those leaves, the merge's ms a step, then one step's pod
     gradients through both routes of ``compress_merge_leaf``
@@ -3807,7 +4017,6 @@ def recurrent_train_phase(kern, zero, record):
     from repro_torch.configs import get_config
     from repro_torch.dist import grad_sync as gs
     from repro_torch.fed import engine as eng
-    from repro_torch.launch import fl_train as fl
     from repro_torch.launch import train as tr
     from repro_torch.models import Model
     from repro_torch.optim import make_optimizer
@@ -3827,7 +4036,7 @@ def recurrent_train_phase(kern, zero, record):
         items = eng.tree_items(params)
         n_params = sum(p.numel() for _, p in items)
         big = sum(1 for _, p in items if p.numel() >= TRAIN_MIN_LEAF)
-        batch = tr._batch(cfg0, model.cfg.vocab_size,
+        batch = tr._batch(cfg0, model.cfg,
                           np.random.default_rng(1), "cuda")
         rec = dict(remat=model.cfg.remat, parameters=n_params,
                    leaves=len(items), compressed_leaves=big)
@@ -3851,41 +4060,9 @@ def recurrent_train_phase(kern, zero, record):
         torch.cuda.empty_cache()
 
         if arch == "hymba-1.5b":
-            label = f"{arch} bcrs_opwa {TRAIN_PODS} pods"
-            res, run, counts = train_run(kern, zero, label,
-                                         big * TRAIN_STEPS, arch=arch,
-                                         steps=TRAIN_STEPS,
-                                         compressed_pods=TRAIN_PODS)
-            add(counts)
-            check_ef(label, res["opt_state"]["ef"], embed_kept_whole=True)
-            train_routes(model, res["params"], res["opt_state"]["ef"],
-                         batch, res["pod_crs"], run)
-            rec[f"train {TRAIN_PODS} pods"] = run
-            del res
-            gc.collect()
-            torch.cuda.empty_cache()
-
-            cfg = fl.FLTrainConfig(arch=arch, engine="round", device="cuda",
-                                   rounds=FL_ROUNDS)
-            label = f"{arch} bcrs_opwa C={cfg.clients}"
-            leaves = rec["leaves"]
-            run, res, counts = fl_round_run(kern, zero, fl, cfg, leaves,
-                                            label)
-            add(counts)
-            ref = dict(executed_rounds=res["executed_rounds"],
-                       losses=res["losses"], params=host_copy(res["params"]),
-                       residuals=None)
-            del res
-            gc.collect()
-            torch.cuda.empty_cache()
-            scan, counts = scan_against_round(kern, zero, fl, cfg, ref,
-                                              leaves, n_params, label)
-            add(counts)
-            run["scan"] = scan
-            rec["fl_train"] = run
-            del ref
-            gc.collect()
-            torch.cuda.empty_cache()
+            with at_depth(CUT_LAYERS):
+                rec.update(hymba_at_depth(kern, zero, arch, batch,
+                                          rec["leaves"], add))
         rec["seconds"] = time.perf_counter() - t_arch
         out[arch] = rec
         del model, batch
@@ -3896,6 +4073,348 @@ def recurrent_train_phase(kern, zero, record):
         launches={k: v for k, v in total.items() if v})
     print(f"[recurrent train phase] {time.perf_counter() - t_phase:.1f} s, "
           f"launches {record['recurrent_train_phase']['launches']}")
+    return total
+
+
+# --------------------------------------------- cross-attention phase
+CROSS_ARCHS = ("whisper-medium", "llama-3.2-vision-11b")
+CROSS_FAMILIES = ("encdec", "vlm")
+#: vlm's cross gates for every check: at the init's zeros (tanh(0) = 0)
+#: each cross block is the identity and its ``xattn`` and MLP get no
+#: gradient, so a check that kept them would pass whatever the
+#: cross-attention computed (tests/test_torch_cross.py sets the same)
+VLM_GATES = {"gate_attn": 0.7, "gate_mlp": -0.4}
+WHISPER_FRAMES = 1500         # 30 s of audio: the encoder's positions
+WHISPER_TOKENS = 448          # whisper's max_target_len
+VLM_PREFILL = 2048            # the vlm's prefill, over its 1024 patches
+#: the f32 prefill-vs-decode check's depth: whisper whole, the vlm at 2 of
+#: its 8 groups (8 self and 2 cross blocks, full width)
+CROSS_F32_LAYERS = {"encdec": None, "vlm": 8}
+CROSS32_PROMPT, CROSS32_BATCH = 128, 2
+#: --compressed-pods: whisper at full depth, the vlm at 2 of 8 groups (its
+#: 9.78e9 parameters' pod gradients and f32 EF residuals would not fit)
+CROSS_PODS = {"whisper-medium": (4, None), "llama-3.2-vision-11b": (2, 8)}
+
+
+def cross_memory(cfg, batch: int, seed: int, frames: int = WHISPER_FRAMES):
+    """Seeded N(0, 1) f32 frames [B, frames, d] (encdec) or patches [B,
+    n_patches, d_vision] (vlm) on the card, as ``launch.train`` draws
+    them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(batch, frames, cfg.d_model,
+                                      generator=g, device="cuda")}
+    v = cfg.vision
+    return {"patches": torch.randn(batch, v.n_patches, v.d_vision,
+                                   generator=g, device="cuda")}
+
+
+def set_gates(params):
+    """vlm's every gate set to ``VLM_GATES`` in place; others untouched."""
+    if "groups" in params:
+        for name, value in VLM_GATES.items():
+            params["groups"]["cross"][name].fill_(value)
+    return params
+
+
+@contextlib.contextmanager
+def gated_init():
+    """``Model.init`` (as ``launch.train`` calls it) with ``set_gates``."""
+    from repro_torch.models import transformer as tfm
+    init = tfm.Model.init
+    tfm.Model.init = lambda self, seed: set_gates(init(self, seed))
+    try:
+        yield
+    finally:
+        tfm.Model.init = init
+
+
+def fill_cross_caches(model, params, cache, memory):
+    """The cross caches a request would need, filled here (nothing in the
+    package fills them, nor in the reference): whisper's ``ck`` / ``cv``
+    of decoder layer i from ``_encode``'s memory through that layer's
+    ``xattn.wk`` / ``wv``, the vlm's of group g from the projected
+    patches through group g's. Returns the cache with ``ck`` / ``cv``
+    replaced by ``[L or G, B, S_mem, Hkv, D]`` tensors."""
+    cfg = model.cfg
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            mem = model._encode(params, memory["frames"])
+            xattn = params["layers"]["xattn"]
+        else:
+            mem = memory["patches"].to(model.dtype) @ params["vis_proj"]
+            xattn = params["groups"]["cross"]["xattn"]
+        b, s = mem.shape[:2]
+        shape = (b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kv = {name: torch.stack([(mem @ w).reshape(shape)
+                                 for w in xattn[name]]).to(cache["k"].dtype)
+              for name in ("wk", "wv")}
+    return dict(cache, ck=kv["wk"], cv=kv["wv"])
+
+
+def cross_prefill_f32(kern, zero, model, params):
+    """``Model.prefill`` against the stepped decode in f32 at full width:
+    the bf16 params upcast (the same weights, exactly) in an f32 model
+    (the frames or patches are cast to the model's dtype), an f32 cache whose
+    cross caches ``fill_cross_caches`` fills from the same frames or
+    patches, a ``CROSS32_PROMPT``-token prompt at B = ``CROSS32_BATCH``,
+    the launch counters reset just before and read just after each (zero);
+    the last prompt token's logits within ``logit_tolerance_f32`` (R =
+    ``LOGIT_ROUNDINGS``, L the decoder-side blocks, K the longest
+    contraction), argmax equal where the top-2 margin exceeds 2 * tol. The
+    planted fault is the served decode, whose cross caches stay zero (a
+    zeroed memory): it must fail the same bound."""
+    import dataclasses
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_from_items, tree_items
+    # frames and patches are cast to the model's dtype: an f32 model
+    model = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                  device="cuda")
+    cfg = model.cfg
+    blocks = cfg.n_layers + (cfg.vision.n_cross_layers
+                             if cfg.family == "vlm" else 0)
+    p32 = tree_from_items([(k, t.float() if t.is_floating_point() else t)
+                           for k, t in tree_items(params)])
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (CROSS32_BATCH, CROSS32_PROMPT)), device="cuda")
+    memory = cross_memory(cfg, CROSS32_BATCH, 6)
+    res, counts = drive(kern, lambda: generate(model, p32, prompt, 1,
+                                               torch.float32))
+    check_counts(counts, zero, f"{cfg.name} f32 decode, zero cross caches")
+
+    def fwd():
+        with torch.no_grad():
+            return model.prefill(p32, dict(memory, tokens=prompt))[0]
+
+    pf, counts = drive(kern, fwd)
+    check_counts(counts, zero, f"{cfg.name} f32 prefill")
+    cache = fill_cross_caches(
+        model, p32, model.init_cache(CROSS32_BATCH, CROSS32_PROMPT,
+                                     torch.float32), memory)
+    mem_len = cache["ck"].shape[2]
+
+    def stepped():
+        with torch.no_grad():
+            for pos in range(CROSS32_PROMPT):
+                logits, _ = model.decode_step(p32, cache, prompt[:, pos],
+                                              pos)
+            return logits
+
+    dec, counts = drive(kern, stepped)
+    check_counts(counts, zero, f"{cfg.name} f32 decode, filled cross caches")
+    del p32, cache, memory
+    dec = dec[:, :cfg.vocab_size]
+    pre = pf[:, :cfg.vocab_size]
+    served = res["prompt_logits"][:, :cfg.vocab_size]
+    check(dec.dtype == pre.dtype == torch.float32
+          and bool(torch.isfinite(dec).all())
+          and bool(torch.isfinite(pre).all()),
+          f"{cfg.name} f32 prefill and decode: finite f32 logits")
+    r = LOGIT_ROUNDINGS[cfg.family]
+    k = max(cfg.d_ff, mem_len, CROSS32_PROMPT)
+    tol = logit_tolerance_f32(blocks, dec, r, k)
+    diff = float((pre - dec).abs().max())
+    check(diff <= tol, f"{cfg.name} f32 prefill vs decode over filled cross "
+                       f"caches: max |d| {diff:.4g} > {tol:.4g}")
+    fault = float((pre - served).abs().max())
+    check(fault > tol, f"{cfg.name}: the served decode (zero cross caches) "
+                       f"fails the bound: max |d| {fault:.4g} <= {tol:.4g}")
+    top2 = dec.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = dec.argmax(-1) == pre.argmax(-1)
+    check(bool(same[margin > 2 * tol].all()),
+          f"{cfg.name} f32 prefill vs decode: argmax agrees where the top-2 "
+          "margin exceeds 2 * tol")
+    rms = float(dec.pow(2).mean().sqrt())
+    out = dict(batch=CROSS32_BATCH, prompt=CROSS32_PROMPT, memory=mem_len,
+               blocks=blocks, max_abs=diff, tol=tol, over_tol=diff / tol,
+               zero_memory_max_abs=fault, zero_memory_over_tol=fault / tol,
+               logits_rms=rms,
+               formula=f"6 * 2^-24 * sqrt(L * {r} * {k}) * rms(logits)",
+               argmax_agree=same.tolist(), top2_margin=margin.tolist())
+    print(f"[f32 prefill vs decode] {cfg.name} at {blocks} blocks "
+          f"B={CROSS32_BATCH} S={CROSS32_PROMPT} memory {mem_len}: max |d| "
+          f"{diff:.4g} = {diff / tol:.3g} of tol {tol:.4g} "
+          f"({out['formula']}; rms {rms:.4g}); zero cross caches "
+          f"{fault / tol:.3g} of it")
+    return out
+
+
+def cross_serve(kern, zero, arch, record, profile=True):
+    """One cross family at full width, bf16, seed 0 (vlm's gates set):
+    ``serve_path`` (generate at B = 4, 128 / 32, zero launches, decode ms
+    a step beside its byte bound, peak memory, ``cross_prefill_f32``),
+    ``Model.prefill`` at the model's own shape (whisper: 1500 frames and
+    448 tokens; the vlm: 2048 tokens over its 1024 patches) and 3 decode
+    steps under the profiler (launches a step, idle share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves
+    model = Model(get_config(arch), device="cuda")
+    params = set_gates(model.init(0))
+    cfg = model.cfg
+    key = "serve_" + arch
+    out = serve_path(kern, zero, model, params, record, key)
+    out["n_params_tree"] = sum(t.numel() for t in tree_leaves(params))
+    seq = WHISPER_TOKENS if cfg.family == "encdec" else VLM_PREFILL
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, seq)), device="cuda")
+    memory = cross_memory(cfg, SERVE_BATCH, 7)
+    torch.cuda.reset_peak_memory_stats()
+    pf, _, ms = timed_prefill(kern, zero, model, params, prompt, memory)
+    check(tuple(pf.shape) == (SERVE_BATCH, model.v_pad)
+          and bool(torch.isfinite(pf).all()),
+          f"{arch} prefill at {seq} tokens: finite logits")
+    mem_len = next(iter(memory.values())).shape[1]
+    out.update(prefill_forward_ms_own_shape=ms, own_shape_tokens=seq,
+               own_shape_memory=mem_len,
+               peak_gb_prefill_own_shape=torch.cuda.max_memory_allocated()
+               / 1e9)
+    del memory, pf
+    if profile:
+        out["profile_decode"] = profile_decode(model, params)
+        print(f"[profile decode {arch}]", json.dumps(out["profile_decode"]))
+    print(f"[{key}] n_params {out['n_params']} (config), "
+          f"{out['n_params_tree']} (tree); Model.prefill at B={SERVE_BATCH} "
+          f"x {seq} tokens over {mem_len} "
+          f"{'frames' if cfg.encdec else 'patches'} {ms:.1f} ms, peak "
+          f"{out['peak_gb_prefill_own_shape']:.2f} GB")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_train(kern, zero, arch, record):
+    """Training one cross family at full width (bf16, seed 0, remat
+    "full", ``launch.train``'s CLI defaults: sgd, lr 1e-2, B = 8, S = 256;
+    vlm's gates set through ``gated_init``). whisper: one batch's gradient
+    twice bit for bit (``grad_reproducible``) and under the three remat
+    modes (``remat_modes_bit_for_bit``, each mode's peak). Both: dense sgd
+    4 steps (``train_run``: no merge launch, wall a step, peak memory) and
+    one more step under the profiler; ``--compressed-pods`` (whisper 4
+    pods at full depth, the vlm 2 at 2 of 8 groups) 4 steps: each merge
+    kernel once per leaf of at least 4096 elements a step, EF residuals
+    nonzero there, the merge's ms a step, then one step's pod gradients
+    through both merge routes and through ``threshold_find`` /
+    ``fused_merge`` against their twins, bit for bit, leaf by leaf
+    (``train_routes(twins=True)``). Returns the launches per kernel."""
+    import gc
+    import repro_torch.configs as configs
+    from repro_torch.configs import get_config
+    from repro_torch.dist import grad_sync as gs
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    total = dict(zero)
+    rec = {}
+    cfg0 = tr.TrainConfig(arch=arch, device="cuda")
+    with gated_init():
+        if arch == "whisper-medium":
+            model = Model(get_config(arch), device="cuda")
+            params = model.init(cfg0.seed)
+            batch = tr._batch(cfg0, model.cfg, np.random.default_rng(1),
+                              "cuda")
+            rec["loss_reproducible"] = grad_reproducible(model, params,
+                                                         batch)
+            rec["remat_modes"] = remat_modes_bit_for_bit(arch, params, batch)
+            del model, params, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        res, run, counts = train_run(kern, zero, f"{arch} dense sgd", 0,
+                                     arch=arch, steps=TRAIN_STEPS)
+        for name, n in counts.items():
+            total[name] += n
+        model = Model(get_config(arch), device="cuda")
+        batch = tr._batch(cfg0, model.cfg, np.random.default_rng(1), "cuda")
+        step = gs.make_train_step(model, make_optimizer("sgd", cfg0.lr))
+        def one_step():
+            # its outputs (the vlm's new params: 19.6 GB) dropped at once
+            step(res["params"], (), batch)
+
+        _, wall, by_name = device_profile(one_step)
+        run["profile"] = busy_record(wall, by_name)
+        print(f"[profile train step] {arch}: {json.dumps(run['profile'])}")
+        rec["train dense sgd"] = run
+        del res, step, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        pods, depth = CROSS_PODS[arch]
+        with at_depth(depth):
+            model = Model(configs.get_config(arch), device="cuda")
+            label = (f"{arch} bcrs_opwa {pods} pods"
+                     + (f" at {depth} self layers" if depth else ""))
+            res, run, counts = train_run(kern, zero, label, None, arch=arch,
+                                         steps=TRAIN_STEPS,
+                                         compressed_pods=pods)
+            for name, n in counts.items():
+                total[name] += n
+            check_ef(label, res["opt_state"]["ef"], embed_kept_whole=True)
+            batch = tr._batch(cfg0, model.cfg, np.random.default_rng(1),
+                              "cuda")
+            train_routes(model, res["params"], res["opt_state"]["ef"],
+                         batch, res["pod_crs"], run, pods=pods, twins=True)
+            run["depth"] = model.cfg.n_layers
+            rec[f"train {pods} pods"] = run
+            del res, batch, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rec, total
+
+
+#: what may stay allocated between the two cross families: cuBLAS
+#: workspaces and cached constants, far below one layer of either model
+RESIDENT_LIMIT = 256 * 2 ** 20
+
+
+def resident_on_card():
+    """Bytes still allocated on the card after a collection (cuBLAS
+    workspaces released first) and the five largest CUDA tensors that
+    Python still reaches, as (shape, dtype, MiB)."""
+    import gc
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    live = [(tuple(t.shape), str(t.dtype),
+             t.numel() * t.element_size() / 2 ** 20)
+            for t in gc.get_objects() if torch.is_tensor(t) and t.is_cuda]
+    return (torch.cuda.memory_allocated(),
+            sorted(live, key=lambda t: -t[2])[:5])
+
+
+def cross_phase(kern, zero, record):
+    """The encdec (whisper-medium) and vlm (llama-3.2-vision-11b) families
+    at full width on the card: ``cross_serve`` then ``cross_train`` for
+    each; before the vlm runs, nothing of the earlier work is left
+    resident (``resident_on_card`` below ``RESIDENT_LIMIT``). Returns the
+    launches per kernel over the driven runs."""
+    t_phase = time.perf_counter()
+    total = dict(zero)
+    out = {}
+    for arch in CROSS_ARCHS:
+        t0 = time.perf_counter()
+        resident, largest = resident_on_card()
+        if arch != CROSS_ARCHS[0]:
+            check(resident < RESIDENT_LIMIT,
+                  f"nothing left resident before {arch}: "
+                  f"{resident / 2 ** 20:.1f} MiB allocated; largest live "
+                  f"tensors {largest}")
+        serve = cross_serve(kern, zero, arch, record)
+        rec, counts = cross_train(kern, zero, arch, record)
+        for name, n in counts.items():
+            total[name] += n
+        rec.update(serve=serve, resident_bytes_before=resident,
+                   largest_live_tensors_before=largest,
+                   seconds=time.perf_counter() - t0)
+        out[arch] = rec
+    record["cross_phase"] = dict(
+        runs=out, seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    print(f"[cross phase] {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{record['cross_phase']['launches']}")
     return total
 
 
@@ -4003,6 +4522,13 @@ def main() -> int:
         kern, {name: 0 for name in kern}, record)
     for name, n in rec_train_launches.items():
         launches[name] += n
+    cross_launches = cross_phase(kern, {name: 0 for name in kern}, record)
+    for name, n in cross_launches.items():
+        launches[name] += n
+    check(cross_launches["threshold_find"] > 0
+          and cross_launches["fused_merge"] > 0,
+          f"both merge kernels launched in the cross phase: "
+          f"{cross_launches}")
     check(all(n > 0 for n in launches.values()),
           f"every kernel launched on its path: {launches}")
 
@@ -4033,6 +4559,8 @@ def main() -> int:
         if rec_train_launches[name]:
             extra["recurrent_train_phase_launches"] = rec_train_launches[
                 name]
+        if cross_launches[name]:
+            extra["cross_phase_launches"] = cross_launches[name]
         if fl_launches[name]:
             extra["fl_train_phase_launches"] = fl_launches[name]
             # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and

@@ -3,7 +3,8 @@ where the card's time per round goes, by kernel, under ``torch.profiler``;
 with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
     python3 round_times.py [--engine fused|scan] [--rows]
-                           [--train | --prefill] [--arch ARCH] [--src DIR]
+                           [--train | --prefill | --decode] [--arch ARCH]
+                           [--src DIR]
                            [--out PATH]
 
 For each of ``STRATEGIES``: ``run_fl(engine=...)`` ("fused" by default;
@@ -40,6 +41,14 @@ the launch module records it, its losses and its peak memory
 peak memory over them (``torch.cuda.max_memory_allocated``, the weights
 included) and a SHA-256 of the last call's logits, so two trees can be
 held to the same bits.
+
+``--decode``: ``launch.serve.generate`` of each arch in ``--arch`` (a
+comma-separated list; ``DECODE_ARCHS`` by default) at full width instead
+(bf16, random weights from seed 0, B = ``DECODE_BATCH``, a
+``DECODE_PROMPT``-token prompt stepped through ``decode_step``, then
+``DECODE_GEN`` greedy tokens): one warm call, then ``DECODE_REPEATS``
+timed calls, decode ms a step from each (``generate``'s host clock over
+the generated steps), and a SHA-256 of the tokens and last logits.
 
 ``--src`` names the ``src`` directory of the tree to time (default: this
 checkout's), so one card can time two trees in alternation: parent,
@@ -250,6 +259,41 @@ def prefill_times(src: str, arch: str) -> dict:
                 logits_sha256=digest.hexdigest())
 
 
+DECODE_ARCHS = "stablelm-1.6b,hymba-1.5b,rwkv6-1.6b"
+DECODE_BATCH, DECODE_PROMPT, DECODE_GEN, DECODE_REPEATS = 4, 128, 32, 2
+
+
+def decode_times(src: str, archs: str) -> dict:
+    """``--decode``: decode ms a step of ``generate`` for each arch."""
+    import hashlib
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    out = dict(src=src, gpu=torch.cuda.get_device_name(0),
+               batch=DECODE_BATCH, prompt=DECODE_PROMPT, gen=DECODE_GEN)
+    for arch in archs.split(","):
+        model = Model(get_config(arch), device="cuda")
+        params = model.init(0)
+        prompt = torch.as_tensor(np.random.default_rng(2).integers(
+            0, model.cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)),
+            device="cuda")
+        generate(model, params, prompt[:, :8], 8)
+        ms = []
+        for _ in range(DECODE_REPEATS):
+            res = generate(model, params, prompt, DECODE_GEN)
+            ms.append(res["t_gen"] / (DECODE_GEN - 1) * 1e3)
+        digest = hashlib.sha256(res["tokens"].tobytes()
+                                + res["logits"].float().cpu().numpy()
+                                .tobytes())
+        out[arch] = dict(decode_ms_per_step=ms,
+                         stepped_prefill_s=res["t_prefill"],
+                         sha256=digest.hexdigest())
+        del model, params, res
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
@@ -262,8 +306,13 @@ def main() -> int:
                          "width, not the simulation's rounds")
     ap.add_argument("--prefill", action="store_true",
                     help="time Model.prefill at full width, not the rounds")
-    ap.add_argument("--arch", default="stablelm-1.6b",
-                    help="the model of --train or --prefill")
+    ap.add_argument("--decode", action="store_true",
+                    help="time launch.serve.generate's decode steps at "
+                         "full width, not the rounds")
+    ap.add_argument("--arch", default=None,
+                    help="the model of --train or --prefill "
+                         "(stablelm-1.6b), the models of --decode "
+                         f"({DECODE_ARCHS})")
     ap.add_argument("--src", default=os.path.join(HERE, "src"))
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -272,10 +321,12 @@ def main() -> int:
         return 1
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
-    if args.train:
-        out = train_times(src, args.arch)
+    if args.decode:
+        out = decode_times(src, args.arch or DECODE_ARCHS)
+    elif args.train:
+        out = train_times(src, args.arch or "stablelm-1.6b")
     elif args.prefill:
-        out = prefill_times(src, args.arch)
+        out = prefill_times(src, args.arch or "stablelm-1.6b")
     elif args.rows:
         out = row_times(src)
     else:

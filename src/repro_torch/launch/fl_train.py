@@ -30,6 +30,10 @@ clients, per-client EF residuals in a ``fed.population.ClientStateStore``
 
 Synthetic client batches come from round- (or dispatch-) indexed rng
 streams, so a resumed run consumes the same data as an uninterrupted one.
+They hold tokens and labels only: the encdec and vlm families also need
+``frames`` or ``patches``, which the reference's ``launch.fl_train`` does
+not build either (it stops with a ``KeyError``), so ``run`` refuses those
+families at its start (ROADMAP §3, R6); ``launch.train`` trains them.
 
     PYTHONPATH=src python -m repro_torch.launch.fl_train \\
         --arch stablelm-1.6b [--reduced --device cpu] --rounds 3 \\
@@ -242,6 +246,22 @@ def _chunk_rounds(cfg: FLTrainConfig, n_todo: int) -> int:
     return min(max(n_todo, 1), MAX_CHUNK_ROUNDS)
 
 
+#: the batch entry each cross-attention family reads beside the tokens
+CROSS_INPUTS = {"encdec": "frames", "vlm": "patches"}
+
+
+def refuse_cross_families(arch: str, family: str) -> None:
+    """Raise ``ValueError`` for an arch whose family needs ``frames`` or
+    ``patches``, which these batches do not hold."""
+    if family in CROSS_INPUTS:
+        raise ValueError(
+            f"{arch}: fl_train's client batches hold tokens and labels but "
+            f"no {CROSS_INPUTS[family]!r}, which the {family} family reads "
+            "(the reference's fl_train stops with KeyError: "
+            f"{CROSS_INPUTS[family]!r}; ROADMAP §3, R6); train it with "
+            "launch.train")
+
+
 def run(cfg: FLTrainConfig, init_params=None) -> dict:
     """Train per ``cfg``; returns {params, residuals, losses,
     executed_rounds, wall_per_round, chunk_rounds, times, resumed_from}
@@ -257,6 +277,7 @@ def run(cfg: FLTrainConfig, init_params=None) -> dict:
     model_cfg = get_config(cfg.arch)
     if cfg.reduced:
         model_cfg = model_cfg.reduced()
+    refuse_cross_families(cfg.arch, model_cfg.family)
     model = Model(model_cfg, device=dev)
     rng = np.random.default_rng(cfg.seed)
     params = (model.init(cfg.seed) if init_params is None
@@ -744,6 +765,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    try:
+        refuse_cross_families(args.arch, get_config(args.arch).family)
+    except ValueError as e:
+        ap.error(str(e))
     run(FLTrainConfig(
         arch=args.arch, rounds=args.rounds, clients=args.clients,
         participation=args.participation, local_steps=args.local_steps,

@@ -5,11 +5,14 @@ caches.
         [--reduced] [--batch 4 --prompt-len 16 --gen 32] [--device cuda]
 
 Port of ``repro.launch.serve`` for the families the port runs: dense
-(stablelm-1.6b, yi-9b, qwen2.5-*), hybrid (hymba-1.5b) and ssm
-(rwkv6-1.6b). Random weights from ``--seed``, the prompt prefilled by
-stepping ``decode_step`` over it (cache-exact, any prompt length), then
-greedy argmax over the real vocabulary. Runs on the card unless ``--device
-cpu`` is given.
+(stablelm-1.6b, yi-9b, qwen2.5-*), hybrid (hymba-1.5b), ssm (rwkv6-1.6b),
+encdec (whisper-medium) and vlm (llama-3.2-vision-11b). Random weights
+from ``--seed``, the prompt prefilled by stepping ``decode_step`` over it
+(cache-exact, any prompt length), then greedy argmax over the real
+vocabulary. As in the reference, no frames or patches are drawn and the
+cross-attention caches stay zero, so whisper and the vlm decode without
+the audio or the image (ROADMAP §3, R5). Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 

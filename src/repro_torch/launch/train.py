@@ -13,8 +13,10 @@ opt_state)`` are in the reference's on-disk format, and a run resumes
 from the newest one. On resume the port draws (and drops) the batches of
 the steps already done, so a resumed run consumes the data an
 uninterrupted one would; the reference restarts its stream at the first
-batch (ROADMAP §3, R4). The encdec and vlm batches are not built here:
-``Model`` refuses those families (ROADMAP queue 1, item 3).
+batch (ROADMAP §3, R4). The encdec batches also hold ``frames`` [B, S,
+d_model] and the vlm batches ``patches`` [B, n_patches, d_vision], f32
+normals drawn from the same stream right after each step's tokens, as the
+reference draws them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         [--reduced --device cpu] --steps 100 --batch 8 --seq 256 \\
@@ -66,12 +68,30 @@ class TrainConfig:
     device: str = "cuda"
 
 
-def _batch(cfg: TrainConfig, vocab: int, rng, dev) -> dict:
-    toks = synthetic_lm_tokens(cfg.batch, cfg.seq + 1, vocab, rng)
-    return {"tokens": torch.from_numpy(np.ascontiguousarray(
-                toks[:, :-1])).to(dev),
-            "labels": torch.from_numpy(np.ascontiguousarray(
-                toks[:, 1:])).to(dev)}
+def _draw(cfg: TrainConfig, model_cfg, rng) -> dict:
+    """One step's batch as numpy, drawn from ``rng`` in the reference's
+    order: the tokens, then the encdec family's frames or the vlm family's
+    patches (f64 normals, cast to f32)."""
+    toks = synthetic_lm_tokens(cfg.batch, cfg.seq + 1, model_cfg.vocab_size,
+                               rng)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if model_cfg.family == "encdec":
+        out["frames"] = rng.normal(0, 1, (cfg.batch, cfg.seq,
+                                          model_cfg.d_model))
+    if model_cfg.family == "vlm":
+        v = model_cfg.vision
+        out["patches"] = rng.normal(0, 1, (cfg.batch, v.n_patches,
+                                           v.d_vision))
+    return out
+
+
+def _batch(cfg: TrainConfig, model_cfg, rng, dev) -> dict:
+    out = {}
+    for k, a in _draw(cfg, model_cfg, rng).items():
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return out
 
 
 def run(cfg: TrainConfig, init_params=None) -> dict:
@@ -131,12 +151,12 @@ def run(cfg: TrainConfig, init_params=None) -> dict:
 
     for _ in range(start_step):
         # the batches of the steps already done (see the module docstring)
-        synthetic_lm_tokens(cfg.batch, cfg.seq + 1, model_cfg.vocab_size, rng)
+        _draw(cfg, model_cfg, rng)
     losses: List[float] = []
     walls: List[float] = []
     t0 = time.time()
     for step in range(start_step, cfg.steps):
-        batch = _batch(cfg, model_cfg.vocab_size, rng, dev)
+        batch = _batch(cfg, model_cfg, rng, dev)
         synchronize(dev)
         ts = time.perf_counter()
         if cfg.compressed_pods:

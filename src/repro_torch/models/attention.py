@@ -1,11 +1,12 @@
-"""Attention: GQA/MHA with causal / sliding-window masks, q-chunked for long
-sequences, plus single-token decode against a KV cache.
+"""Attention: GQA/MHA with causal / sliding-window / bidirectional / cross
+variants, q-chunked for long sequences, plus single-token decode against a
+KV cache.
 
-Port of ``repro.models.attention`` (the self-attention parts the dense
-family needs). The layouts are the reference's: activations ``[B, S, H, D]``,
-caches ``[B, S, Hkv, D]``, and query head ``i`` reads kv head
-``i // (H / Hkv)``. The port runs on one card, so the reference's sharding
-constraints have no counterpart here.
+Port of ``repro.models.attention`` (self- and cross-attention). The
+layouts are the reference's: activations ``[B, S, H, D]``, caches ``[B, S,
+Hkv, D]``, and query head ``i`` reads kv head ``i // (H / Hkv)``. The port
+runs on one card, so the reference's sharding constraints have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -153,6 +154,18 @@ def self_attention(p, x, *, cfg, positions, causal=True, window=None,
     return mm(out.reshape(x.shape[0], x.shape[1], h * hd), p["wo"])
 
 
+def cross_attention(p, x, memory, *, cfg, chunk=512):
+    """x: [B,Sq,d] attends to memory [B,Sk,d]; no mask, no rope."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, sq, _ = x.shape
+    sk = memory.shape[1]
+    q = (x @ p["wq"]).reshape(b, sq, h, hd)
+    k = (memory @ p["wk"]).reshape(b, sk, hkv, hd)
+    v = (memory @ p["wv"]).reshape(b, sk, hkv, hd)
+    out = attend(q, k, v, causal=False, window=None, chunk=chunk)
+    return mm(out.reshape(b, sq, h * hd), p["wo"])
+
+
 def decode_self_attention(p, x, k_cache, v_cache, pos, *, cfg, window=None,
                           rope=True):
     """One-token self-attn with cache update.
@@ -174,3 +187,14 @@ def decode_self_attention(p, x, k_cache, v_cache, pos, *, cfg, window=None,
     v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     out = decode_attend(q[:, 0], k_cache, v_cache, pos, window=window)
     return out.reshape(b, h * hd) @ p["wo"], k_cache, v_cache
+
+
+def decode_cross_attention(p, x, ck_cache, cv_cache, *, cfg):
+    """One-token cross-attn against precomputed memory K and V
+    ``[B, S, Hkv, D]``, every position valid (``pos = S - 1``). x: [B,d]."""
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, h, hd)
+    s = ck_cache.shape[1]
+    out = decode_attend(q, ck_cache, cv_cache, s - 1, window=None)
+    return out.reshape(b, h * hd) @ p["wo"]

@@ -1,24 +1,38 @@
-"""Decoder-only models: init, the training loss, prefill and cached decode.
+"""Models: init, the training loss, prefill and cached decode.
 
-Port of ``repro.models.transformer.Model`` for three families:
+Port of ``repro.models.transformer.Model`` for five families:
   * dense (stablelm, yi, qwen: MHA or GQA, optional QKV bias);
   * hybrid (hymba: GQA sliding-window attention and a parallel SSD branch,
     mixed as ``0.5 * (rms_norm(a) + rms_norm(s))``);
   * ssm (rwkv6: time-mix and channel-mix blocks behind a layer norm);
+  * encdec (whisper: a bidirectional encoder over precomputed frame
+    embeddings ``batch["frames"]`` [B, S_enc, d], then decoder blocks of
+    causal self-attention, cross-attention to the encoder's output and an
+    MLP; sinusoidal positions, no RoPE);
+  * vlm (llama-3.2-vision: G groups of ``per`` dense self-attention blocks
+    and one gated cross-attention block to the projected patch embeddings
+    ``batch["patches"]`` [B, n_patches, d_vision]);
 each with ``init``, ``loss_fn``, ``init_cache``, ``decode_step`` and
-``prefill``.
-Params are nested dicts whose layer stack carries a leading ``[L, ...]``
-axis; the forward walks it with a Python loop. Under autograd each block is
-checkpointed as ``cfg.remat`` says (``_remat``: "full", "dots" or
-"none"), as the reference wraps its scanned blocks; with grad mode off
-(serving) no block is. The caches are stacked ``[L, ...]`` too and written
-in place by ``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv, D]``, for
-hybrid also ``"ssm": {"conv", "state"}``, for ssm ``{"tm_x", "cm_x",
-"wkv"}``.
+``prefill``. The frontends are stubs, as in the reference: frames and
+patches come precomputed.
+Params are nested dicts whose layer stacks carry a leading ``[L, ...]``
+axis (vlm's self blocks ``[G, per, ...]``); the forward walks them with a
+Python loop. Under autograd each block (encoder, decoder, self and cross
+blocks alike) is checkpointed as ``cfg.remat`` says (``_remat``: "full",
+"dots" or "none"), as the reference wraps its scanned blocks; with grad
+mode off (serving) no block is. The caches are stacked ``[L, ...]`` too and
+written in place by ``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv,
+D]``, for hybrid also ``"ssm": {"conv", "state"}``, for ssm ``{"tm_x",
+"cm_x", "wkv"}``, for encdec also ``{"ck", "cv"}`` of ``[L, B, S, Hkv,
+D]``, for vlm ``{"k", "v"}`` of ``[G, per, B, S, Hkv, D]`` and ``{"ck",
+"cv"}`` of ``[G, B, n_patches, Hkv, D]``. As in the reference, nothing
+fills the cross caches: ``init_cache`` gives zeros and ``prefill`` returns
+no cache, so serving decodes without the audio or the image (ROADMAP §3,
+R5).
 
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
-in the reference. The moe, encdec and vlm families wait for their ROADMAP
-item (queue 1, item 3) and raise ``NotImplementedError`` when the model is
+in the reference. The moe family (and mla) waits for its ROADMAP item
+(queue 1, item 3) and raises ``NotImplementedError`` when the model is
 built.
 """
 from __future__ import annotations
@@ -97,8 +111,23 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def sinusoidal_pos(seq: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """f32 [seq, d] sinusoidal positions from ``offset``, in the
+    reference's order: ``sin(pos * div)`` in the even columns, ``cos`` in
+    the odd, ``div = exp(arange(0, d, 2) * (-log(10000) / d))``."""
+    f32 = torch.float32
+    pos = offset + torch.arange(seq, device=device)[:, None].to(f32)
+    c = -torch.log(torch.tensor(10000.0, dtype=f32, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=f32, device=device) * c)
+    pe = torch.zeros((seq, d), dtype=f32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 #: the families the port runs, each with the config options it may set
-_PORTED = {"dense": (), "hybrid": ("ssm",), "ssm": ("rwkv",)}
+_PORTED = {"dense": (), "hybrid": ("ssm",), "ssm": ("rwkv",),
+           "encdec": ("encdec",), "vlm": ("vision",)}
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
@@ -123,8 +152,8 @@ class Model:
         if what is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet; the port runs the "
-                "dense, hybrid and ssm families (ROADMAP queue 1, item 3: "
-                "the moe, mla, encdec and vlm families)")
+                "dense, hybrid, ssm, encdec and vlm families (ROADMAP "
+                "queue 1, item 3: the moe and mla families)")
         self.cfg = cfg
         self.dtype = _dtype(cfg.dtype)
         self.v_pad = pad_vocab(cfg.vocab_size, 256)
@@ -151,6 +180,25 @@ class Model:
             p["final_norm_b"] = self._zeros()
             p["layers"] = self._init_stack(gen, cfg.n_layers,
                                            self._init_rwkv_block)
+        elif cfg.family == "encdec":
+            p["encoder"] = {
+                "layers": self._init_stack(gen, cfg.encdec.n_enc_layers,
+                                           self._init_dense_block),
+                "final_norm": self._ones(),
+            }
+            p["layers"] = self._init_stack(gen, cfg.n_layers,
+                                           self._init_encdec_block)
+        elif cfg.family == "vlm":
+            v = cfg.vision
+            g, per = self._groups()
+            p["vis_proj"] = dense_init(gen, v.d_vision, (v.d_vision, d),
+                                       self.dtype)
+            p["groups"] = {
+                "self": _stack([self._init_stack(gen, per,
+                                                 self._init_dense_block)
+                                for _ in range(g)]),
+                "cross": self._init_stack(gen, g, self._init_cross_block),
+            }
         else:  # dense / hybrid
             p["layers"] = self._init_stack(gen, cfg.n_layers,
                                            self._init_block)
@@ -163,6 +211,11 @@ class Model:
     def _zeros(self):
         return torch.zeros((self.cfg.d_model,), dtype=torch.float32,
                            device=self.device)
+
+    def _groups(self) -> Tuple[int, int]:
+        """vlm's (groups, self blocks a group)."""
+        g = self.cfg.vision.n_cross_layers
+        return g, self.cfg.n_layers // g
 
     def _init_stack(self, gen, n, init_one):
         return _stack([init_one(gen) for _ in range(n)])
@@ -194,6 +247,29 @@ class Model:
                                              self.dtype),
                 "ln1_s": self._ones(), "ln1_b": self._zeros(),
                 "ln2_s": self._ones(), "ln2_b": self._zeros()}
+
+    def _init_xattn(self, gen):
+        """Cross-attention's projections (no QKV bias)."""
+        cfg = self.cfg
+        return attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   self.dtype)
+
+    def _init_cross_block(self, gen):
+        """vlm's gated cross block; its gates start at 0, as the
+        reference's."""
+        cfg = self.cfg
+        gate = lambda: torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        return {"xattn": self._init_xattn(gen),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                self.dtype),
+                "gate_attn": gate(), "gate_mlp": gate(),
+                "ln1": self._ones(), "ln2": self._ones()}
+
+    def _init_encdec_block(self, gen):
+        return dict(self._init_dense_block(gen),
+                    xattn=self._init_xattn(gen), lnx=self._ones())
 
     # ============================================================== forward
     def _window_flags(self) -> Optional[List[int]]:
@@ -230,12 +306,100 @@ class Model:
         h = layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
         return x + rwkv6.apply_channel_mix(p["cm"], h)
 
+    def _cross_block_fwd(self, p, x, memory):
+        """vlm's gated cross block: ``tanh(gate)`` in the activations'
+        dtype scales the cross-attention and the MLP."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        g_a = torch.tanh(p["gate_attn"]).to(x.dtype)
+        x = x + g_a * attn.cross_attention(p["xattn"], h, memory, cfg=cfg)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        g_m = torch.tanh(p["gate_mlp"]).to(x.dtype)
+        return x + g_m * apply_mlp(p["mlp"], h, cfg.act)
+
+    def _encdec_block_fwd(self, p, x, memory, positions):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attn.self_attention(p["attn"], h, cfg=cfg,
+                                    positions=positions, causal=True,
+                                    rope=False)
+        h = rms_norm(x, p["lnx"], cfg.norm_eps)
+        x = x + attn.cross_attention(p["xattn"], h, memory, cfg=cfg)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + apply_mlp(p["mlp"], h, cfg.act)
+
+    def _enc_block_fwd(self, p, x, positions):
+        """An encoder block: bidirectional self-attention, no RoPE."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + attn.self_attention(p["attn"], h, cfg=cfg,
+                                    positions=positions, causal=False,
+                                    rope=False)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + apply_mlp(p["mlp"], h, cfg.act)
+
+    def _remat_mode(self) -> str:
+        return self.cfg.remat if torch.is_grad_enabled() else "none"
+
+    def _encode(self, params, frames) -> torch.Tensor:
+        """The encoder over precomputed frame embeddings [B, S, d]: the
+        frames cast to the model's dtype, plus the sinusoidal positions in
+        that dtype, then the blocks and the encoder's final norm."""
+        cfg = self.cfg
+        b, s, d = frames.shape
+        x = frames.to(self.dtype) + sinusoidal_pos(
+            s, d, device=frames.device).to(self.dtype)
+        positions = torch.arange(s, device=frames.device)
+        body = _remat(self._enc_block_fwd, self._remat_mode())
+        for p in unstack_layers(params["encoder"]["layers"],
+                                cfg.encdec.n_enc_layers):
+            x = body(p, x, positions)
+        return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+    def _backbone_encdec(self, params, x, memory, positions):
+        """Decoder blocks over the embedded tokens (positions added)."""
+        body = _remat(self._encdec_block_fwd, self._remat_mode())
+        for p in unstack_layers(params["layers"], self.cfg.n_layers):
+            x = body(p, x, memory, positions)
+        return x
+
+    def _backbone_vlm(self, params, x, vis, positions):
+        """Each group's self blocks, then its cross block to ``vis``."""
+        g, per = self._groups()
+        remat = self._remat_mode()
+        self_body = _remat(self._block_fwd, remat)
+        cross_body = _remat(self._cross_block_fwd, remat)
+        groups = params["groups"]
+        for gs, gc in zip(unstack_layers(groups["self"], g),
+                          unstack_layers(groups["cross"], g)):
+            for p in unstack_layers(gs, per):
+                x = self_body(p, x, positions)
+            x = cross_body(gc, x, vis)
+        return x
+
+    def _hidden(self, params, batch, x) -> torch.Tensor:
+        """Embedded tokens [B, S, d] -> final hidden states, for every
+        family; encdec reads ``batch["frames"]``, vlm ``batch["patches"]``
+        (projected by ``vis_proj`` in the model's dtype)."""
+        cfg = self.cfg
+        s = x.shape[1]
+        positions = torch.arange(s, device=x.device)
+        if cfg.family == "encdec":
+            memory = self._encode(params, batch["frames"])
+            x = x + sinusoidal_pos(s, cfg.d_model,
+                                   device=x.device).to(self.dtype)
+            return self._backbone_encdec(params, x, memory, positions)
+        if cfg.family == "vlm":
+            vis = batch["patches"].to(self.dtype) @ params["vis_proj"]
+            return self._backbone_vlm(params, x, vis, positions)
+        return self._backbone(params, x, positions)
+
     def _backbone(self, params, x, positions) -> torch.Tensor:
         """Token embeddings -> final hidden states. With grad mode on, each
         block runs under ``_remat(..., cfg.remat)``."""
         cfg = self.cfg
         layers = unstack_layers(params["layers"], cfg.n_layers)
-        remat = cfg.remat if torch.is_grad_enabled() else "none"
+        remat = self._remat_mode()
         if cfg.family == "ssm":
             x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
             body = _remat(self._rwkv_block_fwd, remat)
@@ -251,19 +415,19 @@ class Model:
     # ================================================================= losses
     def loss_fn(self, params, batch) -> Tuple[torch.Tensor,
                                               Dict[str, torch.Tensor]]:
-        """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S])
-        -> ``(loss, {"ce": ce})``, the reference's loss for every family
-        outside encdec and vlm (the MoE aux and MTP terms belong to
-        families not ported yet). The embedding is the one-hot contraction
-        (``layers.embed_onehot``), so the gradient is the same from run to
-        run on the card. The ssm family's ``ln0`` is ``_backbone``'s; its
-        ``final_norm_b`` is read by nothing, so autograd gives it no
-        gradient (the trainers turn that into zeros, the reference's)."""
+        """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S],
+        with ``"frames"`` for encdec and ``"patches"`` for vlm) -> ``(loss,
+        {"ce": ce})``, the reference's loss (the MoE aux and MTP terms
+        belong to families not ported yet). The embedding is the one-hot
+        contraction (``layers.embed_onehot``), so the gradient is the same
+        from run to run on the card. The ssm family's ``ln0`` is
+        ``_backbone``'s; its ``final_norm_b`` is read by nothing, so
+        autograd gives it no gradient (the trainers turn that into zeros,
+        the reference's)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
-        x = embed_onehot(params["embed"]["w"], tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)
-        x = self._backbone(params, x, positions)
+        x = self._hidden(params, batch,
+                         embed_onehot(params["embed"]["w"], tokens))
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         ce = cross_entropy(h @ params["lm_head"]["w"], labels,
                            cfg.vocab_size)
@@ -272,18 +436,30 @@ class Model:
     # ================================================================ caches
     def init_cache(self, batch: int, seq: int,
                    dtype=torch.bfloat16) -> Params:
-        """Zeroed caches, ``[L, ...]`` for every leaf. ``dtype`` is the K
-        and V caches'; the recurrent states are f32 whatever it is, and so
-        is hymba's conv history (the reference builds it with
-        ``init_ssm_cache``'s default dtype)."""
+        """Zeroed caches, ``[L, ...]`` for every leaf (vlm's self-attention
+        ``[G, per, ...]``, its cross caches ``[G, ...]`` over
+        ``n_patches``). ``dtype`` is the K and V caches' (the cross caches'
+        too); the recurrent states are f32 whatever it is, and so is hymba's
+        conv history (the reference builds it with ``init_ssm_cache``'s
+        default dtype)."""
         cfg = self.cfg
         L = cfg.n_layers
         if cfg.family == "ssm":
             return _zeros_stacked(L, rwkv6.init_rwkv_cache(
                 batch, cfg.d_model, cfg.n_heads, cfg.rwkv, self.device))
-        shape = (L, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache = {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        head = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        zeros = lambda *lead: torch.zeros(lead + head, dtype=dtype,
+                                          device=self.device)
+        if cfg.family == "vlm":
+            g, per = self._groups()
+            n = cfg.vision.n_patches
+            return {"k": zeros(g, per, batch, seq),
+                    "v": zeros(g, per, batch, seq),
+                    "ck": zeros(g, batch, n), "cv": zeros(g, batch, n)}
+        cache = {"k": zeros(L, batch, seq), "v": zeros(L, batch, seq)}
+        if cfg.family == "encdec":
+            cache["ck"] = zeros(L, batch, seq)
+            cache["cv"] = zeros(L, batch, seq)
         if cfg.family == "hybrid":
             cache["ssm"] = _zeros_stacked(L, mamba.init_ssm_cache(
                 batch, cfg.d_model, cfg.ssm, device=self.device))
@@ -299,6 +475,12 @@ class Model:
         if cfg.family == "ssm":
             x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
             x, cache = self._decode_rwkv(params, cache, x)
+        elif cfg.family == "vlm":
+            x, cache = self._decode_vlm(params, cache, x, pos)
+        elif cfg.family == "encdec":
+            x = x + sinusoidal_pos(1, cfg.d_model, offset=pos,
+                                   device=x.device)[0].to(x.dtype)
+            x, cache = self._decode_encdec(params, cache, x, pos)
         else:
             x, cache = self._decode_dense(params, cache, x, pos)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -345,16 +527,59 @@ class Model:
             x = x + cm_out
         return x, cache
 
+    def _decode_cross(self, p, x, ck, cv):
+        """vlm's gated cross block on one token against its cross cache."""
+        cfg = self.cfg
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        a = attn.decode_cross_attention(p["xattn"], h, ck, cv, cfg=cfg)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * a
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * apply_mlp(
+            p["mlp"], h, cfg.act)
+
+    def _decode_vlm(self, params, cache, x, pos):
+        """Each group's self blocks (their K / V written in place), then
+        its cross block against ``ck`` / ``cv`` (read only)."""
+        g, per = self._groups()
+        groups = params["groups"]
+        for gi in range(g):
+            gs = layer_params(groups["self"], gi)
+            for j in range(per):
+                x, _, _ = self._decode_block(
+                    layer_params(gs, j), x, cache["k"][gi, j],
+                    cache["v"][gi, j], pos, None)
+            x = self._decode_cross(layer_params(groups["cross"], gi), x,
+                                   cache["ck"][gi], cache["cv"][gi])
+        return x, cache
+
+    def _decode_encdec(self, params, cache, x, pos):
+        """Decoder blocks: self-attention without RoPE (K / V written in
+        place), cross-attention against ``ck`` / ``cv`` (read only)."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            p = layer_params(params["layers"], i)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            a, _, _ = attn.decode_self_attention(
+                p["attn"], h, cache["k"][i], cache["v"][i], pos, cfg=cfg,
+                rope=False)
+            x = x + a
+            h = rms_norm(x, p["lnx"], cfg.norm_eps)
+            x = x + attn.decode_cross_attention(
+                p["xattn"], h, cache["ck"][i], cache["cv"][i], cfg=cfg)
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            x = x + apply_mlp(p["mlp"], h, cfg.act)
+        return x, cache
+
     # ================================================================ prefill
     def prefill(self, params, batch) -> Tuple[torch.Tensor, None]:
         """Forward over the prompt ``batch["tokens"]`` [B, S], returning the
         last-token logits [B, v_pad] and no cache, as the reference's
-        prefill does. The recurrent families need S to be a multiple of
-        their GLA chunk (the reference asserts it; nothing is padded)."""
+        prefill does (encdec also reads ``batch["frames"]``, vlm
+        ``batch["patches"]``). The recurrent families need S to be a
+        multiple of their GLA chunk (the reference asserts it; nothing is
+        padded)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed_lookup(params["embed"]["w"], tokens)
-        positions = torch.arange(tokens.shape[1], device=x.device)
-        x = self._backbone(params, x, positions)
+        x = self._hidden(params, batch, embed_lookup(params["embed"]["w"],
+                                                     batch["tokens"]))
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return h[:, -1, :] @ params["lm_head"]["w"], None

@@ -68,8 +68,12 @@ torch.set_num_threads(1)
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DENSE = ("stablelm-1.6b", "yi-9b", "qwen2.5-14b")
 RECURRENT = ("hymba-1.5b", "rwkv6-1.6b")
+CROSS = ("whisper-medium", "llama-3.2-vision-11b")
 NON_DENSE = tuple(a for a in ARCH_IDS if get_config(a).family != "dense")
-NOT_PORTED = tuple(a for a in NON_DENSE if a not in RECURRENT)
+NOT_PORTED = tuple(a for a in NON_DENSE if a not in RECURRENT + CROSS)
+#: vlm's cross gates, set non-zero on both sides: at the reference's init
+#: (zeros) every cross block is the identity
+VLM_GATES = {"gate_attn": 0.7, "gate_mlp": -0.4}
 LOGIT_TOL = 1e-4
 
 
@@ -333,10 +337,16 @@ def _redraw_constants(tree, seed=100):
 
 def _reference_params(cfg_j, seed):
     """The reference's init as numpy (what crosses to the port), biases
-    made nonzero so the qkv_bias branch is exercised, and for the
-    recurrent families every constant leaf redrawn (``_redraw_constants``)."""
+    made nonzero so the qkv_bias branch is exercised, for the recurrent
+    families every constant leaf redrawn (``_redraw_constants``), and
+    vlm's cross gates set to ``VLM_GATES``."""
     params = jax.tree.map(np.asarray, ModelJ(cfg_j).init(
         jax.random.PRNGKey(seed)))
+    if cfg_j.family == "vlm":
+        cross = params["groups"]["cross"]
+        for name, value in VLM_GATES.items():
+            cross[name] = np.full(cross[name].shape, value, np.float32)
+        return params
     attn = params["layers"].get("attn", {})
     for i, name in enumerate(("bq", "bk", "bv")):
         if name in attn:
@@ -371,7 +381,23 @@ MODEL_CASES = {
     # reduced hybrid's window of 8 bites in its one windowed layer)
     "hymba-1.5b": {},
     "rwkv6-1.6b": {},
+    # the cross-attention families: prefill with 10 frames (whisper) or
+    # the config's 8 patches (vlm, gates non-zero); decode over zero cross
+    # caches, as the reference serves them
+    "whisper-medium": {},
+    "llama-3.2-vision-11b": {},
 }
+
+
+def _cross_inputs(cfg, b, seed=8):
+    """The prefill batch's frames [B, 10, d] (encdec) or patches [B,
+    n_patches, d_vision] (vlm) from seeded numpy; {} for other families."""
+    if cfg.family == "encdec":
+        return {"frames": _rand(seed, b, 10, cfg.d_model)}
+    if cfg.family == "vlm":
+        v = cfg.vision
+        return {"patches": _rand(seed, b, v.n_patches, v.d_vision)}
+    return {}
 
 
 @pytest.mark.parametrize("case", list(MODEL_CASES))
@@ -389,9 +415,13 @@ def test_model_prefill_and_greedy_decode(case):
     prompt = np.random.default_rng(4).integers(0, cfg_j.vocab_size,
                                                (b, prompt_len))
 
-    want, _ = model_j.prefill(params_j, {"tokens": jnp.asarray(prompt)})
-    got, cache_none = model_t.prefill(params_t,
-                                      {"tokens": torch.as_tensor(prompt)})
+    extra = _cross_inputs(cfg_j, b)
+    want, _ = model_j.prefill(params_j, dict(
+        {k: jnp.asarray(v) for k, v in extra.items()},
+        tokens=jnp.asarray(prompt)))
+    got, cache_none = model_t.prefill(params_t, dict(
+        {k: torch.from_numpy(v) for k, v in extra.items()},
+        tokens=torch.as_tensor(prompt)))
     assert cache_none is None and got.shape == (b, model_t.v_pad)
     _close(got, want, LOGIT_TOL)
 
@@ -406,7 +436,10 @@ def test_model_prefill_and_greedy_decode(case):
                                           torch.as_tensor(prompt[:, pos]),
                                           pos)
         _close(lt, lj, LOGIT_TOL)
-    _close(lt, got, LOGIT_TOL)          # the last prompt step is the prefill
+    if not extra:
+        # the last prompt step is the prefill (the cross families' decode
+        # reads zero cross caches: tests/test_torch_cross.py fills them)
+        _close(lt, got, LOGIT_TOL)
     for i in range(gen):
         tj = np.asarray(jnp.argmax(lj[:, :cfg_j.vocab_size], -1))
         tt = torch.argmax(lt[:, :cfg_j.vocab_size], -1).numpy()
