@@ -184,7 +184,29 @@
    (eftopk), one full-width local SGD step of ``fl_train`` (also timed in
    parts: forward, backward, update) and 3 decode steps of each serve path
    (stablelm, hymba, rwkv6: device time by kernel, idle share), and the
-   row kernels' device time a call at the main shape.
+   row kernels' device time a call at the main shape;
+14. the moe phase (deepseek-v3-671b, MLA with its latent-cache decode and
+   MTP, and kimi-k2-1t-a32b, GQA; bf16, seed 0): each served at full
+   width, every expert and top-8 kept, its depth cut to one whole period
+   (deepseek 4 of 61 layers: its 3 dense and 1 MoE; kimi 2 of 61: 1 dense,
+   1 MoE): ``launch.serve.generate`` as in 9 (zero launches), decode ms a
+   step beside its byte bound (every expert read: the dense ``[E, C, d]``
+   dispatch), 3 profiled decode steps, ``Model.prefill`` at 4 x 2048 with
+   its dropped (token, slot) pairs counted, peak memory, the bf16
+   prefill-vs-decode gap recorded; deepseek upcast to f32 leaf by leaf
+   (its MTP head dropped), ``Model.prefill`` at 1 x 8 against the stepped
+   decode on an f32 cache: no drop, the same experts for every token with
+   each top-8 margin above twice its bound, the logits within ``6 * 2^-24
+   * sqrt(L * 21 * d_ff) * rms``, and a decode that never stores its rope
+   key or sends the second routing slot to the next expert failing it;
+   deepseek's MoE layer alone at full width (T = 2048, capacity 80), its
+   every gradient twice, bit for bit; each model at ``reduced()`` size:
+   one gradient twice and the three remat modes bit for bit,
+   ``launch.train`` dense sgd and ``--compressed-pods 2 --wire-cr 0.1``, 4
+   steps each, both merge kernels against their twins bit for bit on every
+   compressed leaf (the expert stacks among them); deepseek's ``fl_train
+   --reduced`` through the round engine and the mesh scan (one captured
+   CUDA graph a round), bit for bit.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -2505,19 +2527,20 @@ def train_run(kern, zero, label, merges, **kw):
 
 
 def train_routes(model, params, ef, batch, pod_crs, record,
-                 pods=TRAIN_PODS, twins=False):
+                 pods=TRAIN_PODS, twins=False, wire=None):
     """One step's ``pods`` pod gradients from the compressed run's final
     state through both routes of ``compress_merge_leaf``, leaf by leaf
     (``routes_on_leaf``): thresholds, masks, ks and EF residuals bit for
     bit, agg within 2*C*2^-24*gamma*sum|w v|. With ``twins``, also
     ``threshold_find`` and ``fused_merge`` against their twins on each
-    leaf, bit for bit (``merge_twins_on_leaf``)."""
+    leaf, bit for bit (``merge_twins_on_leaf``). ``wire``: the run's
+    ``wire_cr`` (the CLI's default unless given), which caps the CRs."""
     from repro_torch.core import compression as comp
     from repro_torch.core.strategies import get as get_strategy
     from repro_torch.dist import grad_sync as gs
     from repro_torch.fed import engine as eng
     from repro_torch.launch import train as tr
-    wire = np.float32(tr.TrainConfig().wire_cr)
+    wire = np.float32(tr.TrainConfig().wire_cr if wire is None else wire)
     crs_np = np.clip(np.asarray(pod_crs, np.float32), 0.0, wire)
     crs = torch.from_numpy(crs_np).cuda()
     n_pods = pods
@@ -3142,8 +3165,15 @@ LOGIT_R, LOGIT_Z = 17, 6.0
 #: the same. Their check is in f32 too (``cross_prefill_f32``): the served
 #: decode reads zero cross caches, so its bf16 gap to a prefill that reads
 #: the frames or patches says nothing.
+#: moe 28 a block (MLA's 14: ln1, wq_a, q_norm, wq_b, RoPE on q, wkv_a,
+#: kv_norm, RoPE on the key, wk_b, wv_b, the probabilities, the output, wo,
+#: the residual add; the MoE's 14: ln2, the experts' up, gate, silu, gated
+#: product and down, the combine, the shared expert's five, its add, the
+#: residual add), counted as ``tests/test_torch_moe_model.py`` does; only
+#: recorded (the decode's absorbed MLA rounds elsewhere than the prefill's
+#: expanded one, in f32), the check is ``moe_prefill_f32``.
 LOGIT_ROUNDINGS = {"dense": LOGIT_R, "hybrid": 35, "ssm": 48, "encdec": 21,
-                   "vlm": 17}
+                   "vlm": 17, "moe": 28}
 #: f32 prefill against the f32 stepped decode, the bf16 params upcast (the
 #: same weights, exactly) and an f32 cache. The two paths run the same
 #: elementwise ops on the same inputs, which round alike; they differ only
@@ -3515,22 +3545,26 @@ def nbytes(tree) -> int:
 def decode_bound_ms(model, params, batch, positions, cache_len=None):
     """Bytes a decode step must move at cache length ``positions`` (mean
     over the timed steps), over the HBM rate: every weight a step reads
-    (all but the embedding table, of which B rows, and the encoder and
-    ``vis_proj``, which decode never reads), the K and V cache up to the
-    position (each layer's window at most) and the new K/V entries, the
-    cross caches read whole (encdec's ``cache_len`` positions, vlm's
+    (all but the embedding table, of which B rows, and the encoder,
+    ``vis_proj`` and the MTP head, which decode never reads; every expert
+    of a MoE layer), the K and V cache up to the position (each layer's
+    window at most) and the new K/V entries (MLA: its latent and rope
+    key), the cross caches read whole (encdec's ``cache_len`` positions, vlm's
     patches), the recurrent state (hymba's conv history and SSM state,
     rwkv's token shifts and wkv state), read once and written once, and
     the logits. Returns (ms, total bytes, state bytes)."""
     cfg = model.cfg
     emb = params["embed"]["w"]
     unread = nbytes(emb) + sum(nbytes(params[k]) for k in ("encoder",
-                                                           "vis_proj")
+                                                           "vis_proj", "mtp")
                                if k in params)
     weights = nbytes(params) - unread + batch * emb.shape[1] * \
         emb.element_size()
     kv = cross = 0
-    if cfg.family != "ssm":
+    if cfg.mla is not None:
+        entry = batch * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2
+        kv = entry * (positions + 1) * cfg.n_layers
+    elif cfg.family != "ssm":
         entry = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
         wins = model._window_flags() or [positions + 1] * cfg.n_layers
         kv = sum(entry * min(positions + 1, w) for w in wins)
@@ -3539,8 +3573,8 @@ def decode_bound_ms(model, params, batch, positions, cache_len=None):
         elif cfg.family == "vlm":
             cross = entry * cfg.vision.n_patches * cfg.vision.n_cross_layers
     one = model.init_cache(batch, 1)
-    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v", "ck", "cv")
-                              if k in one)
+    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v", "ck", "cv",
+                                                      "mla") if k in one)
     del one
     total = weights + kv + cross + 2 * state + batch * model.v_pad * 2
     return total / HBM_BYTES_PER_S * 1e3, total, state
@@ -3643,9 +3677,10 @@ def serve_path(kern, zero, model, params, record, key="serve"):
                 cfg.family] or cfg.n_layers))
     else:
         out["bf16_gap_over_dense_form"] = diff / tol
-        torch.cuda.empty_cache()
-        out["f32"] = prefill_vs_decode_f32(
-            kern, zero, *cut_model(model, params, CUT_LAYERS))
+        if cfg.family != "moe":     # moe's: moe_prefill_f32, bf16 freed
+            torch.cuda.empty_cache()
+            out["f32"] = prefill_vs_decode_f32(
+                kern, zero, *cut_model(model, params, CUT_LAYERS))
     print(f"[{key}] {cfg.name} B={SERVE_BATCH}: stepped prefill "
           f"{PROMPT} tok {out['stepped_prefill_ms']:.1f} ms, "
           f"Model.prefill {prefill_ms:.2f} ms, decode "
@@ -3892,12 +3927,13 @@ def recurrent_serve_phase(kern, zero, record, profile):
 REMAT_MODES = ("none", "full", "dots")
 
 
-def remat_modes_bit_for_bit(arch, params, batch):
+def remat_modes_bit_for_bit(arch, params, batch, cfg=None):
     """One batch's loss and every gradient under ``remat`` "none", "full"
     and "dots": bit for bit equal (a recompute runs the same kernels on the
     same shapes), each mode's peak memory and wall (ending in a
     synchronize). The first mode's gradients stay on the card for the
-    comparison; each later mode's are freed once compared."""
+    comparison; each later mode's are freed once compared. ``cfg``: the
+    model's config (the arch's full config unless given)."""
     import dataclasses
     import gc
     from repro_torch.configs import get_config
@@ -3905,8 +3941,8 @@ def remat_modes_bit_for_bit(arch, params, batch):
     from repro_torch.models import Model
     out, first = {}, None
     for mode in REMAT_MODES:
-        model = Model(dataclasses.replace(get_config(arch), remat=mode),
-                      device="cuda")
+        model = Model(dataclasses.replace(cfg or get_config(arch),
+                                          remat=mode), device="cuda")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4418,6 +4454,481 @@ def cross_phase(kern, zero, record):
     return total
 
 
+# ------------------------------------------------------------- moe phase
+MOE_ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+#: serving depth: one whole period of each model, every width, every
+#: expert and top-8 kept: deepseek's 3 dense layers and 1 of its 58 MoE
+#: layers (15.80e9 parameters, 31.6 GB in bf16), kimi's 1 dense layer and
+#: 1 of its 60 (19.97e9, 39.9 GB). At full depth they hold 671e9 and
+#: 1.03e12 parameters, which no 80 GB card holds (PERF.md §4).
+MOE_SERVE_LAYERS = {"deepseek-v3-671b": 4, "kimi-k2-1t-a32b": 2}
+MOE_PREFILL = 2048            # Model.prefill at B = 4: 8192 routed tokens
+#: the f32 prefill-vs-decode check: B = 1 x 8 tokens, T = 8 at capacity 8
+#: (= top-k), so no expert can overflow and no token is dropped, as in the
+#: decode (T = B). At random init the attention averages the values over
+#: the prefix, so every token's router input shares one direction and a
+#: few experts take most tokens: at B = 2 x 32 (capacity 8, a mean load
+#: of 2) the prefill dropped 91 of 512 (token, slot) pairs, at 4 x 2048
+#: 11,637 of 65,536 (PERF.md §6); only T <= k rules it out.
+MOE32_PROMPT, MOE32_BATCH = 8, 1
+#: f32 sites a block at which prefill and the stepped decode sum in other
+#: orders (a GEMM against a GEMV, the expanded MLA against the absorbed
+#: one), counted as ``LOGIT32_PROMPT``'s comment says: MLA 12 (ln1's mean,
+#: wq_a, q_norm's mean, wq_b, wkv_a, kv_norm's mean, the nope scores (q .
+#: c wk_b against q wk_b^T . c), the rope scores, the softmax's sum, the
+#: weighted sum, the wv_b fold, wo) and the MoE 9 (ln2's mean, the
+#: router, the experts' gate, up and down, the combine, the shared
+#: expert's gate, up and down). K, the longest contraction a block, is
+#: the dense blocks' d_ff = 18432 (wo's is H * dv = 16384, an expert's
+#: down d_e = 2048, the latent 512).
+MOE_F32_R = 21
+#: one full-width MoE layer's gradient: T = 8 x 256 tokens (capacity 80)
+MOE_LAYER_BATCH = (8, 256)
+MOE_TRAIN_PODS, MOE_WIRE_CR = 2, 0.1
+#: the margin check's router rounding, in the form of the logit bounds:
+#: Z standard deviations of a d-term f32 dot product's rounding, whose
+#: partial sums make it 2^-24 * sqrt(d) * ||x * w_e||_2 in rms. The
+#: worst case, d * 2^-24 * sum_i |x_i w_ie|, is ~0.02 at d = 7168, a
+#: third of the mean gap between the 8th and 9th of 256 standard normal
+#: logits (~0.055): it would call a near-tie every third token, fault or
+#: not. It is printed beside.
+ROUTER_Z = 6.0
+
+
+@contextlib.contextmanager
+def moe_spy(fn):
+    """``moe.apply_moe`` calling ``fn(params, x, mo)`` on each MoE layer's
+    own input first (``apply_moe`` itself unchanged)."""
+    from repro_torch.models import moe
+    real = moe.apply_moe
+
+    def spy(p, x, **kw):
+        fn(p, x, kw["mo"])
+        return real(p, x, **kw)
+    moe.apply_moe = spy
+    try:
+        yield
+    finally:
+        moe.apply_moe = real
+
+
+def upcast_in_place(tree):
+    """Every floating leaf of a nested dict cast to f32 in place, one leaf
+    at a time, each bf16 leaf freed as its f32 copy replaces it."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            upcast_in_place(tree[k])
+        elif tree[k].is_floating_point() and tree[k].dtype != torch.float32:
+            tree[k] = tree[k].float()
+            torch.cuda.empty_cache()
+
+
+def moe_serve(kern, zero, arch, record):
+    """One moe model at full width, its depth cut to ``MOE_SERVE_LAYERS``
+    (bf16, seed 0): ``serve_path`` (generate at B = 4, 128 / 32, zero
+    launches, decode ms a step beside its byte bound, which reads every
+    expert, peak memory, the bf16 prefill-vs-decode gap recorded), then
+    ``Model.prefill`` at 4 x 2048 timed, its dropped (token, slot) pairs
+    counted by ``moe.dropped_tokens`` on each MoE layer's own input in an
+    untimed run, and 3 decode steps under the profiler (launches a step,
+    idle share). Returns (model, params, record)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, moe
+    from repro_torch.tree import tree_leaves
+    cfg = cut_config(get_config(arch), MOE_SERVE_LAYERS[arch])
+    model = Model(cfg, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    init_peak = torch.cuda.max_memory_allocated()
+    key = "serve_" + arch
+    out = serve_path(kern, zero, model, params, record, key)
+    out.update(n_layers=cfg.n_layers,
+               first_dense_layers=cfg.moe.first_dense_layers,
+               n_params_tree=sum(t.numel() for t in tree_leaves(params)),
+               params_bytes=nbytes(params), peak_gb_init=init_peak / 1e9)
+    prompt = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, MOE_PREFILL)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    pf, _, ms = timed_prefill(kern, zero, model, params, prompt)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(pf.shape) == (SERVE_BATCH, model.v_pad)
+          and bool(torch.isfinite(pf).all()),
+          f"{arch} prefill at {MOE_PREFILL} tokens: finite logits")
+    del pf
+    drops = []
+    with moe_spy(lambda p, x, mo: drops.append(moe.dropped_tokens(
+            p, x, mo))), torch.no_grad():
+        model.prefill(params, {"tokens": prompt})
+    t = SERVE_BATCH * MOE_PREFILL
+    out.update(prefill_forward_ms_own_shape=ms, own_shape_tokens=MOE_PREFILL,
+               peak_gb_prefill_own_shape=peak / 1e9,
+               prefill_capacity=moe.capacity(cfg.moe, t),
+               prefill_routed_slots=t * cfg.moe.top_k,
+               prefill_dropped_per_moe_layer=drops)
+    print(f"[{key}] {cfg.n_layers} of {get_config(arch).n_layers} layers "
+          f"({cfg.moe.first_dense_layers} dense), {out['n_params_tree']} "
+          f"parameters, {out['params_bytes'] / 1e9:.2f} GB; Model.prefill "
+          f"at B={SERVE_BATCH} x {MOE_PREFILL} {ms:.1f} ms, peak "
+          f"{peak / 1e9:.2f} GB; dropped {drops} of {t * cfg.moe.top_k} "
+          f"(token, slot) pairs at capacity {out['prefill_capacity']}")
+    out["profile_decode"] = profile_decode(model, params)
+    print(f"[profile decode {arch}]", json.dumps(out["profile_decode"]))
+    return model, params, out
+
+
+def routing_margins(pre, dec, k):
+    """Each MoE layer's routing on the prefill's input against the stepped
+    decode's (both f32, [B, S, d]): the expert sets equal for every token
+    (``moe.route`` on each), and every token's k-th logit (prefill's, in
+    f64) above its (k+1)-th by more than twice what can move a logit
+    between the two paths: the inputs' difference through the router,
+    exactly, plus each side's f32 rounding, ``ROUTER_Z * 2^-24 * sqrt(d)
+    * ||x * w_e||_2``, at its largest over the experts. Returns (the
+    smallest margin, its smallest ratio to that bound, the smallest ratio
+    to the worst-case rounding ``d * 2^-24 * sum_i |x_i w_ie|``)."""
+    from repro_torch.models import moe
+    small, ratio, worst = math.inf, math.inf, math.inf
+    for (p, xp, mo), xd in zip(pre, dec):
+        d = xp.shape[-1]
+        a, b = xp.reshape(-1, d), xd.reshape(-1, d)
+        sets = [torch.sort(moe.route(p, x, mo)[2], dim=-1).values
+                for x in (a, b)]
+        check(torch.equal(*sets), "moe: prefill and decode route every "
+              "token to the same experts")
+        w = p["router"].double()
+        top = (a.double() @ w).topk(k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
+        rnd = ROUTER_Z * 2.0 ** -24 * math.sqrt(d) * (
+            a.double() ** 2 @ w ** 2).sqrt()
+        move = ((a.double() - b.double()) @ w).abs() + 2 * rnd
+        full = d * 2.0 ** -24 * (a.double().abs() @ w.abs())
+        small = min(small, float(margin.min()))
+        ratio = min(ratio, float((margin / (2 * move.max(-1).values)).min()))
+        worst = min(worst, float((margin / (2 * full.max(-1).values)).min()))
+    return small, ratio, worst
+
+
+def moe_prefill_f32(kern, zero, model, params):
+    """deepseek's f32 prefill against its stepped decode at the serving
+    depth (full width): ``params`` (bf16) upcast in place leaf by leaf,
+    the MTP head dropped first (neither path reads it), so that nothing
+    else is resident; an f32 model and cache, a ``MOE32_PROMPT``-token
+    prompt at B = ``MOE32_BATCH``, the launch counters reset just before
+    and read just after each run (zero). Requires: no token dropped in
+    the prefill (``moe.dropped_tokens`` on its MoE layer's input); the
+    same experts on both paths for every token, each top-8 margin above
+    twice what can move a logit between them (``routing_margins``); the
+    last prompt token's logits within ``logit_tolerance_f32`` at R =
+    ``MOE_F32_R``, K = d_ff. Two planted faults must fail that bound: a
+    decode that never stores its rope key, and one whose second routing
+    slot goes to the next expert. Empties ``params`` when done."""
+    import dataclasses
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, mla, moe
+    torch.cuda.reset_peak_memory_stats()
+    params.pop("mtp", None)
+    upcast_in_place(params)
+    model = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                  device="cuda")
+    cfg = model.cfg
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (MOE32_BATCH, MOE32_PROMPT)), device="cuda")
+
+    def stepped(label):
+        res, counts = drive(kern, lambda: generate(model, params, prompt, 1,
+                                                   torch.float32))
+        check_counts(counts, zero, f"{cfg.name} f32 stepped decode{label}")
+        return res["prompt_logits"][:, :cfg.vocab_size]
+
+    steps_in = []
+    with moe_spy(lambda p, x, mo: steps_in.append(x)):
+        dec = stepped("")
+    pre_in, drops = [], []
+
+    def spy(p, x, mo):
+        pre_in.append((p, x, mo))
+        drops.append(moe.dropped_tokens(p, x, mo))
+
+    def fwd():
+        with torch.no_grad():
+            return model.prefill(params, {"tokens": prompt})[0]
+
+    with moe_spy(spy):
+        pf, counts = drive(kern, fwd)
+    check_counts(counts, zero, f"{cfg.name} f32 prefill")
+    check(len(pre_in) == n_moe and len(steps_in) == n_moe * MOE32_PROMPT,
+          f"{cfg.name}: every MoE layer seen")
+    check(drops == [0] * n_moe, f"{cfg.name} f32 prefill drops no token: "
+          f"{drops}")
+    dec_in = [torch.cat(steps_in[i::n_moe], dim=1) for i in range(n_moe)]
+    margin, ratio, worst = routing_margins(pre_in, dec_in, cfg.moe.top_k)
+    check(ratio > 1, f"{cfg.name}: every top-{cfg.moe.top_k} margin above "
+          f"twice its bound (smallest ratio {ratio:.4g})")
+    del steps_in, pre_in, dec_in
+    pre = pf[:, :cfg.vocab_size]
+    check(dec.dtype == pre.dtype == torch.float32
+          and bool(torch.isfinite(dec).all())
+          and bool(torch.isfinite(pre).all()),
+          f"{cfg.name} f32 prefill and decode: finite f32 logits")
+    tol = logit_tolerance_f32(cfg.n_layers, dec, MOE_F32_R, cfg.d_ff)
+    diff = float((pre - dec).abs().max())
+    check(diff <= tol, f"{cfg.name} f32 prefill vs decode logits: max |d| "
+                       f"{diff:.4g} > {tol:.4g}")
+    faults = {}
+    real_decode, real_route = mla.decode_mla, moe.route
+
+    def no_rope(p, x, cache, pos, **kw):
+        out = real_decode(p, x, cache, pos, **kw)
+        cache["k_rope"][:, pos] = 0.0
+        return out
+
+    def next_expert(p, xt, mo):
+        probs, gates, idx = real_route(p, xt, mo)
+        idx = idx.clone()
+        idx[:, 1] = (idx[:, 1] + 1) % mo.n_experts
+        return probs, gates, idx
+
+    for name, mod, attr, fn in (("rope key never stored", mla,
+                                 "decode_mla", no_rope),
+                                ("second slot to the next expert", moe,
+                                 "route", next_expert)):
+        real = getattr(mod, attr)
+        setattr(mod, attr, fn)
+        try:
+            bad = stepped(f" ({name})")
+        finally:
+            setattr(mod, attr, real)
+        faults[name] = float((pre - bad).abs().max())
+        check(faults[name] > tol, f"{cfg.name}: the planted fault "
+              f"({name}) fails the bound: max |d| {faults[name]:.4g} <= "
+              f"{tol:.4g}")
+    top2 = dec.topk(2, dim=-1).values
+    same = dec.argmax(-1) == pre.argmax(-1)
+    check(bool(same[top2[:, 0] - top2[:, 1] > 2 * tol].all()),
+          f"{cfg.name} f32 prefill vs decode: argmax agrees where the top-2 "
+          "margin exceeds 2 * tol")
+    rms = float(dec.pow(2).mean().sqrt())
+    out = dict(batch=MOE32_BATCH, prompt=MOE32_PROMPT,
+               n_layers=cfg.n_layers, dropped=drops,
+               capacity=moe.capacity(cfg.moe, MOE32_BATCH * MOE32_PROMPT),
+               max_abs=diff, tol=tol, over_tol=diff / tol, logits_rms=rms,
+               formula=f"6 * 2^-24 * sqrt(L * {MOE_F32_R} * {cfg.d_ff}) * "
+                       "rms(logits)",
+               smallest_top8_margin=margin,
+               smallest_margin_over_bound=ratio,
+               smallest_margin_over_worst_case=worst,
+               faults_max_abs=faults,
+               faults_over_tol={k: v / tol for k, v in faults.items()},
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    params.clear()
+    print(f"[f32 prefill vs decode] {cfg.name} at {cfg.n_layers} layers "
+          f"B={MOE32_BATCH} S={MOE32_PROMPT}: dropped {drops}; smallest "
+          f"top-{cfg.moe.top_k} margin {margin:.4g} = {ratio:.4g} x its "
+          f"bound ({worst:.4g} x the worst case); max |d| {diff:.4g} = "
+          f"{diff / tol:.3g} of tol {tol:.4g} ({out['formula']}; rms "
+          f"{rms:.4g}); planted faults "
+          f"{ {k: round(v, 2) for k, v in out['faults_over_tol'].items()} }"
+          f" x tol; peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def moe_layer_grads():
+    """deepseek's MoE layer alone at full width (256 experts of 2048, top-8,
+    the shared expert; bf16, seed 0): ``apply_moe`` forward and backward on
+    x [8, 256, 7168] (capacity 80) through the loss ``sum(out * c)``, c a
+    seeded tensor, twice; every gradient (x, the router, the experts'
+    stacks, the shared expert) the same bits both times. The dropped
+    pairs, each run's wall and the peak memory (weights, two gradients)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_items
+    cfg = get_config("deepseek-v3-671b")
+    mo = cfg.moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.init_moe(gen, cfg.d_model, mo, torch.bfloat16)
+    b, s = MOE_LAYER_BATCH
+    x = torch.randn(b, s, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    c = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda")
+    leaves = [t.requires_grad_(True) for _, t in tree_items(p)] + [
+        x.requires_grad_(True)]
+    runs, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = moe.apply_moe(p, x, mo=mo, act=cfg.act)
+        grads = torch.autograd.grad((out.float() * c).sum(), leaves)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        runs.append(grads)
+        del out, grads
+    same = all(a.dtype == b_.dtype and same_bits(a, b_)
+               for a, b_ in zip(*runs))
+    check(same, "deepseek's full-width MoE layer: every gradient the same "
+          "bits twice")
+    with torch.no_grad():
+        drops = moe.dropped_tokens(p, x, mo)
+    rec = dict(tokens=b * s, capacity=moe.capacity(mo, b * s),
+               routed_slots=b * s * mo.top_k, dropped=drops,
+               params=sum(t.numel() for t in leaves[:-1]),
+               wall_s=walls, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del runs, leaves, p, x, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe layer] deepseek at full width, T={b * s} (capacity "
+          f"{rec['capacity']}): gradients bit for bit twice; dropped {drops} "
+          f"of {rec['routed_slots']} pairs; wall {[round(w, 4) for w in walls]}"
+          f" s; peak {rec['peak_gb']:.2f} GB")
+    return rec
+
+
+def moe_train(kern, zero, arch, add):
+    """Training one moe model at ``reduced()`` size on the card (f32,
+    seed 0; ``launch.train``'s CLI defaults: sgd, lr 1e-2, B = 8, S =
+    256): one batch's gradient twice bit for bit, the loss and every
+    gradient bit for bit under the three remat modes; ``launch.train``
+    dense sgd and ``--compressed-pods 2 --wire-cr 0.1``, 4 steps each (no
+    merge launch dense; each merge kernel once per leaf of at least 4096
+    elements a step with pods, EF residuals nonzero there and exactly 0 on
+    the dense leaves, the f32 router among them), then one step's pod
+    gradients through both merge routes and through ``threshold_find`` /
+    ``fused_merge`` against their twins, bit for bit, on every compressed
+    leaf (the ``[L, E, d, d_e]`` expert stacks among them)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import train as tr
+    from repro_torch.models import Model
+    rec = {}
+    cfg0 = tr.TrainConfig(arch=arch, reduced=True, device="cuda")
+    model = Model(get_config(arch).reduced(), device="cuda")
+    params = model.init(cfg0.seed)
+    batch = tr._batch(cfg0, model.cfg, np.random.default_rng(1), "cuda")
+    items = eng.tree_items(params)
+    small = ["/".join(k) for k, p in items if p.numel() < TRAIN_MIN_LEAF]
+    rec.update(parameters=sum(p.numel() for _, p in items),
+               leaves=len(items), dense_path_leaves=small)
+    rec["loss_reproducible"] = grad_reproducible(model, params, batch)
+    rec["remat_modes"] = remat_modes_bit_for_bit(arch, params, batch,
+                                                 cfg=model.cfg)
+    del params, items
+    res, run, counts = train_run(kern, zero, f"{arch} reduced dense sgd", 0,
+                                 arch=arch, reduced=True, steps=TRAIN_STEPS)
+    add(counts)
+    rec["train dense sgd"] = run
+    del res
+    label = (f"{arch} reduced bcrs_opwa {MOE_TRAIN_PODS} pods wire_cr "
+             f"{MOE_WIRE_CR}")
+    res, run, counts = train_run(kern, zero, label, None, arch=arch,
+                                 reduced=True, steps=TRAIN_STEPS,
+                                 compressed_pods=MOE_TRAIN_PODS,
+                                 wire_cr=MOE_WIRE_CR)
+    add(counts)
+    check_ef(label, res["opt_state"]["ef"], embed_kept_whole=False)
+    train_routes(model, res["params"], res["opt_state"]["ef"], batch,
+                 res["pod_crs"], run, pods=MOE_TRAIN_PODS, twins=True,
+                 wire=MOE_WIRE_CR)
+    rec[f"train {MOE_TRAIN_PODS} pods"] = run
+    print(f"[moe train] {arch} reduced: {rec['leaves']} leaves, "
+          f"{len(small)} below {TRAIN_MIN_LEAF} elements take the dense "
+          f"path: {small}")
+    del res, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_fl(kern, zero, add):
+    """``fl_train --arch deepseek-v3-671b --reduced`` at its defaults
+    (bcrs_opwa, C = 8, 2 local steps, B = 4, S = 128; ``FL_ROUNDS``
+    rounds) through the round engine (``fl_round_run``: each kernel
+    launched leaves x rounds) and the mesh scan, whose one captured CUDA
+    graph a round holds the MoE's routing, dispatch and gather forward and
+    backward (``scan_against_round``: bit for bit against the round
+    engine)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.fed import engine as eng
+    from repro_torch.launch import fl_train as fl
+    from repro_torch.models import Model
+    arch = "deepseek-v3-671b"
+    items = eng.tree_items(Model(get_config(arch).reduced(),
+                                 device="cuda").init(0))
+    leaves, n_params = len(items), sum(p.numel() for _, p in items)
+    del items
+    cfg = fl.FLTrainConfig(arch=arch, reduced=True, engine="round",
+                           device="cuda", rounds=FL_ROUNDS)
+    label = f"{arch} reduced bcrs_opwa C={cfg.clients}"
+    run, res, counts = fl_round_run(kern, zero, fl, cfg, leaves, label)
+    add(counts)
+    ref = dict(executed_rounds=res["executed_rounds"], losses=res["losses"],
+               params=host_copy(res["params"]), residuals=None)
+    del res
+    gc.collect()
+    scan, counts = scan_against_round(kern, zero, fl, cfg, ref, leaves,
+                                      n_params, label)
+    add(counts)
+    run.update(scan=scan, leaves=leaves, parameters=n_params)
+    return run
+
+
+def moe_phase(kern, zero, record):
+    """The moe family on the card: deepseek-v3-671b (MLA, MTP) and
+    kimi-k2-1t-a32b (GQA) served at full width with their depth cut
+    (``moe_serve``), deepseek's f32 prefill against its stepped decode
+    (``moe_prefill_f32``) and its MoE layer's full-width gradient twice
+    (``moe_layer_grads``), both trained at ``reduced()`` size
+    (``moe_train``), and deepseek's ``fl_train`` through both engines
+    (``moe_fl``). Nothing of an earlier model is left resident before the
+    next (``resident_on_card``). Returns the launches per kernel over the
+    driven runs."""
+    import gc
+    t_phase = time.perf_counter()
+    total = dict(zero)
+    out = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        resident, largest = resident_on_card()
+        check(resident < RESIDENT_LIMIT,
+              f"nothing left resident before {arch}: "
+              f"{resident / 2 ** 20:.1f} MiB allocated; largest live "
+              f"tensors {largest}")
+        model, params, serve = moe_serve(kern, zero, arch, record)
+        if arch == "deepseek-v3-671b":
+            serve["f32"] = moe_prefill_f32(kern, zero, model, params)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = dict(serve=serve, resident_bytes_before=resident)
+        if arch == "deepseek-v3-671b":
+            rec["moe_layer_gradient"] = moe_layer_grads()
+        rec.update(moe_train(kern, zero, arch, add))
+        rec["seconds"] = time.perf_counter() - t0
+        out[arch] = rec
+    t0 = time.perf_counter()
+    out["fl_train deepseek-v3-671b reduced"] = dict(
+        moe_fl(kern, zero, add), seconds=time.perf_counter() - t0)
+    record["moe_phase"] = dict(
+        runs=out, seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    print(f"[moe phase] {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{record['moe_phase']['launches']}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -4529,6 +5040,12 @@ def main() -> int:
           and cross_launches["fused_merge"] > 0,
           f"both merge kernels launched in the cross phase: "
           f"{cross_launches}")
+    moe_launches = moe_phase(kern, {name: 0 for name in kern}, record)
+    for name, n in moe_launches.items():
+        launches[name] += n
+    check(moe_launches["threshold_find"] > 0
+          and moe_launches["fused_merge"] > 0,
+          f"both merge kernels launched in the moe phase: {moe_launches}")
     check(all(n > 0 for n in launches.values()),
           f"every kernel launched on its path: {launches}")
 
@@ -4561,6 +5078,8 @@ def main() -> int:
                 name]
         if cross_launches[name]:
             extra["cross_phase_launches"] = cross_launches[name]
+        if moe_launches[name]:
+            extra["moe_phase_launches"] = moe_launches[name]
         if fl_launches[name]:
             extra["fl_train_phase_launches"] = fl_launches[name]
             # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and

@@ -48,7 +48,11 @@ comma-separated list; ``DECODE_ARCHS`` by default) at full width instead
 ``DECODE_PROMPT``-token prompt stepped through ``decode_step``, then
 ``DECODE_GEN`` greedy tokens): one warm call, then ``DECODE_REPEATS``
 timed calls, decode ms a step from each (``generate``'s host clock over
-the generated steps), and a SHA-256 of the tokens and last logits.
+the generated steps), and a SHA-256 of the tokens and last logits. The
+moe models (deepseek-v3-671b, kimi-k2-1t-a32b) do not fit one card whole:
+they run at full width with their depth cut to ``DECODE_LAYERS``, one
+whole period (the leading dense layers and one MoE layer), as
+``chip_smoke.py`` serves them.
 
 ``--src`` names the ``src`` directory of the tree to time (default: this
 checkout's), so one card can time two trees in alternation: parent,
@@ -261,10 +265,12 @@ def prefill_times(src: str, arch: str) -> dict:
 
 DECODE_ARCHS = "stablelm-1.6b,hymba-1.5b,rwkv6-1.6b"
 DECODE_BATCH, DECODE_PROMPT, DECODE_GEN, DECODE_REPEATS = 4, 128, 32, 2
+DECODE_LAYERS = {"deepseek-v3-671b": 4, "kimi-k2-1t-a32b": 2}
 
 
 def decode_times(src: str, archs: str) -> dict:
     """``--decode``: decode ms a step of ``generate`` for each arch."""
+    import dataclasses
     import hashlib
     import numpy as np
     from repro_torch.configs import get_config
@@ -273,7 +279,10 @@ def decode_times(src: str, archs: str) -> dict:
     out = dict(src=src, gpu=torch.cuda.get_device_name(0),
                batch=DECODE_BATCH, prompt=DECODE_PROMPT, gen=DECODE_GEN)
     for arch in archs.split(","):
-        model = Model(get_config(arch), device="cuda")
+        cfg = get_config(arch)
+        if arch in DECODE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=DECODE_LAYERS[arch])
+        model = Model(cfg, device="cuda")
         params = model.init(0)
         prompt = torch.as_tensor(np.random.default_rng(2).integers(
             0, model.cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT)),
@@ -286,7 +295,7 @@ def decode_times(src: str, archs: str) -> dict:
         digest = hashlib.sha256(res["tokens"].tobytes()
                                 + res["logits"].float().cpu().numpy()
                                 .tobytes())
-        out[arch] = dict(decode_ms_per_step=ms,
+        out[arch] = dict(decode_ms_per_step=ms, n_layers=cfg.n_layers,
                          stepped_prefill_s=res["t_prefill"],
                          sha256=digest.hexdigest())
         del model, params, res

@@ -1,7 +1,10 @@
 """Models: init, the training loss, prefill and cached decode.
 
-Port of ``repro.models.transformer.Model`` for five families:
+Port of ``repro.models.transformer.Model`` for six families:
   * dense (stablelm, yi, qwen: MHA or GQA, optional QKV bias);
+  * moe (deepseek-v3: MLA attention, leading dense blocks, then blocks
+    whose FFN is a routed MoE with a shared expert, and an MTP head; kimi-k2:
+    the same with GQA attention and no MTP);
   * hybrid (hymba: GQA sliding-window attention and a parallel SSD branch,
     mixed as ``0.5 * (rms_norm(a) + rms_norm(s))``);
   * ssm (rwkv6: time-mix and channel-mix blocks behind a layer norm);
@@ -25,15 +28,15 @@ written in place by ``decode_step``: ``{"k", "v"}`` of ``[L, B, S, Hkv,
 D]``, for hybrid also ``"ssm": {"conv", "state"}``, for ssm ``{"tm_x",
 "cm_x", "wkv"}``, for encdec also ``{"ck", "cv"}`` of ``[L, B, S, Hkv,
 D]``, for vlm ``{"k", "v"}`` of ``[G, per, B, S, Hkv, D]`` and ``{"ck",
-"cv"}`` of ``[G, B, n_patches, Hkv, D]``. As in the reference, nothing
-fills the cross caches: ``init_cache`` gives zeros and ``prefill`` returns
-no cache, so serving decodes without the audio or the image (ROADMAP §3,
-R5).
+"cv"}`` of ``[G, B, n_patches, Hkv, D]``, for MLA ``{"mla": {"c_kv",
+"k_rope"}}`` of ``[L, B, S, kv_lora_rank]`` and ``[L, B, S, rope_dim]``.
+As in the reference, nothing fills the cross caches: ``init_cache`` gives
+zeros and ``prefill`` returns no cache, so serving decodes without the
+audio or the image (ROADMAP §3, R5).
 
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
-in the reference. The moe family (and mla) waits for its ROADMAP item
-(queue 1, item 3) and raises ``NotImplementedError`` when the model is
-built.
+in the reference. A family the port does not run raises
+``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba, rwkv6
+from repro_torch.models import mamba, mla, moe, rwkv6
 from repro_torch.models.layers import (_dtype, apply_mlp, cross_entropy,
                                        dense_init, embed_init, embed_lookup,
                                        embed_onehot, init_mlp, layer_norm,
@@ -104,10 +107,14 @@ def unstack_layers(tree, n: int):
 
 
 def _stack(trees):
-    """List of per-layer params trees -> one tree with a leading L axis."""
+    """List of per-layer params trees -> one tree with a leading L axis
+    (one layer: a view of it, no copy, so that a full-width MoE layer is
+    not held twice while it is stacked)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -126,8 +133,8 @@ def sinusoidal_pos(seq: int, d: int, offset=0, device=None) -> torch.Tensor:
 
 
 #: the families the port runs, each with the config options it may set
-_PORTED = {"dense": (), "hybrid": ("ssm",), "ssm": ("rwkv",),
-           "encdec": ("encdec",), "vlm": ("vision",)}
+_PORTED = {"dense": (), "moe": ("moe", "mla"), "hybrid": ("ssm",),
+           "ssm": ("rwkv",), "encdec": ("encdec",), "vlm": ("vision",)}
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
@@ -151,9 +158,8 @@ class Model:
         what = _unsupported(cfg)
         if what is not None:
             raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet; the port runs the "
-                "dense, hybrid, ssm, encdec and vlm families (ROADMAP "
-                "queue 1, item 3: the moe and mla families)")
+                f"{cfg.name}: {what} is not ported; the port runs the "
+                f"{', '.join(_PORTED)} families")
         self.cfg = cfg
         self.dtype = _dtype(cfg.dtype)
         self.v_pad = pad_vocab(cfg.vocab_size, 256)
@@ -199,6 +205,18 @@ class Model:
                                 for _ in range(g)]),
                 "cross": self._init_stack(gen, g, self._init_cross_block),
             }
+        elif cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            if nd:
+                p["dense_layers"] = self._init_stack(gen, nd,
+                                                     self._init_dense_block)
+            p["moe_layers"] = self._init_stack(gen, cfg.n_layers - nd,
+                                               self._init_moe_block)
+            if cfg.mtp_depth:
+                p["mtp"] = {
+                    "proj": dense_init(gen, 2 * d, (2 * d, d), self.dtype),
+                    "norm_h": self._ones(), "norm_e": self._ones(),
+                    "block": self._init_dense_block(gen)}
         else:  # dense / hybrid
             p["layers"] = self._init_stack(gen, cfg.n_layers,
                                            self._init_block)
@@ -220,13 +238,28 @@ class Model:
     def _init_stack(self, gen, n, init_one):
         return _stack([init_one(gen) for _ in range(n)])
 
+    def _init_attn(self, gen):
+        """Self-attention's params: MLA's when ``cfg.mla`` is set."""
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return mla.init_mla(gen, cfg.d_model, cfg.n_heads, cfg.mla,
+                                self.dtype)
+        return attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   self.dtype, cfg.qkv_bias)
+
     def _init_dense_block(self, gen):
         cfg = self.cfg
-        return {"attn": attn.init_attention(
-                    gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                    cfg.resolved_head_dim, self.dtype, cfg.qkv_bias),
+        return {"attn": self._init_attn(gen),
                 "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
                                 self.dtype),
+                "ln1": self._ones(),
+                "ln2": self._ones()}
+
+    def _init_moe_block(self, gen):
+        cfg = self.cfg
+        return {"attn": self._init_attn(gen),
+                "moe": moe.init_moe(gen, cfg.d_model, cfg.moe, self.dtype),
                 "ln1": self._ones(),
                 "ln2": self._ones()}
 
@@ -284,10 +317,19 @@ class Model:
         return wins
 
     def _block_fwd(self, p, x, positions, window=None, chunk=512):
+        """A pre-norm block (MLA or GQA attention, hymba's parallel SSM
+        branch, then an MLP or a routed MoE) -> (x, aux): the MoE's aux
+        term (an f32 scalar), 0.0 for a block without one."""
         cfg = self.cfg
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a = attn.self_attention(p["attn"], h, cfg=cfg, positions=positions,
-                                causal=True, window=window, chunk=chunk)
+        if cfg.mla is not None:
+            a = mla.apply_mla(p["attn"], h, n_heads=cfg.n_heads, m=cfg.mla,
+                              theta=cfg.rope_theta, positions=positions,
+                              chunk=chunk)
+        else:
+            a = attn.self_attention(p["attn"], h, cfg=cfg,
+                                    positions=positions, causal=True,
+                                    window=window, chunk=chunk)
         if cfg.ssm is not None:
             s = mamba.apply_ssm(p["ssm"], h, d_model=cfg.d_model,
                                 ssm_cfg=cfg.ssm)
@@ -296,7 +338,10 @@ class Model:
         else:
             x = x + a
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + apply_mlp(p["mlp"], h2, cfg.act)
+        if "moe" in p:
+            out, aux = moe.apply_moe(p["moe"], h2, mo=cfg.moe, act=cfg.act)
+            return x + out, aux
+        return x + apply_mlp(p["mlp"], h2, cfg.act), 0.0
 
     def _rwkv_block_fwd(self, p, x):
         cfg = self.cfg
@@ -373,13 +418,14 @@ class Model:
         for gs, gc in zip(unstack_layers(groups["self"], g),
                           unstack_layers(groups["cross"], g)):
             for p in unstack_layers(gs, per):
-                x = self_body(p, x, positions)
+                x, _ = self_body(p, x, positions)
             x = cross_body(gc, x, vis)
         return x
 
-    def _hidden(self, params, batch, x) -> torch.Tensor:
-        """Embedded tokens [B, S, d] -> final hidden states, for every
-        family; encdec reads ``batch["frames"]``, vlm ``batch["patches"]``
+    def _hidden(self, params, batch, x):
+        """Embedded tokens [B, S, d] -> (final hidden states, aux: the sum
+        of the MoE blocks' aux terms, 0.0 without any), for every family;
+        encdec reads ``batch["frames"]``, vlm ``batch["patches"]``
         (projected by ``vis_proj`` in the model's dtype)."""
         cfg = self.cfg
         s = x.shape[1]
@@ -388,15 +434,37 @@ class Model:
             memory = self._encode(params, batch["frames"])
             x = x + sinusoidal_pos(s, cfg.d_model,
                                    device=x.device).to(self.dtype)
-            return self._backbone_encdec(params, x, memory, positions)
+            return self._backbone_encdec(params, x, memory, positions), 0.0
         if cfg.family == "vlm":
             vis = batch["patches"].to(self.dtype) @ params["vis_proj"]
-            return self._backbone_vlm(params, x, vis, positions)
-        return self._backbone(params, x, positions)
+            return self._backbone_vlm(params, x, vis, positions), 0.0
+        if cfg.family == "moe":
+            return self._backbone_moe(params, x, positions)
+        return self._backbone(params, x, positions), 0.0
+
+    def _moe_layers(self, params, split=unstack_layers):
+        """The moe family's blocks in order, the leading dense ones then the
+        MoE ones, each stack taken apart by ``split`` (``unstack_layers``,
+        or per-layer views for decode)."""
+        cfg = self.cfg
+        nd = cfg.moe.first_dense_layers
+        dense = split(params["dense_layers"], nd) if nd else []
+        return dense + split(params["moe_layers"], cfg.n_layers - nd)
+
+    def _backbone_moe(self, params, x, positions):
+        """The moe family's blocks, each under ``_remat(..., cfg.remat)``
+        -> (hidden states, the MoE blocks' aux terms summed in order)."""
+        body = _remat(self._block_fwd, self._remat_mode())
+        aux = 0.0
+        for p in self._moe_layers(params):
+            x, a = body(p, x, positions)
+            aux = aux + a
+        return x, aux
 
     def _backbone(self, params, x, positions) -> torch.Tensor:
-        """Token embeddings -> final hidden states. With grad mode on, each
-        block runs under ``_remat(..., cfg.remat)``."""
+        """Token embeddings -> final hidden states (the dense, hybrid and
+        ssm families). With grad mode on, each block runs under
+        ``_remat(..., cfg.remat)``."""
         cfg = self.cfg
         layers = unstack_layers(params["layers"], cfg.n_layers)
         remat = self._remat_mode()
@@ -409,7 +477,7 @@ class Model:
         body = _remat(self._block_fwd, remat)
         wins = self._window_flags()
         for i, p in enumerate(layers):
-            x = body(p, x, positions, None if wins is None else wins[i])
+            x, _ = body(p, x, positions, None if wins is None else wins[i])
         return x
 
     # ================================================================= losses
@@ -417,36 +485,68 @@ class Model:
                                               Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``batch`` ({"tokens", "labels"} [B, S],
         with ``"frames"`` for encdec and ``"patches"`` for vlm) -> ``(loss,
-        {"ce": ce})``, the reference's loss (the MoE aux and MTP terms
-        belong to families not ported yet). The embedding is the one-hot
-        contraction (``layers.embed_onehot``), so the gradient is the same
-        from run to run on the card. The ssm family's ``ln0`` is
-        ``_backbone``'s; its ``final_norm_b`` is read by nothing, so
-        autograd gives it no gradient (the trainers turn that into zeros,
-        the reference's)."""
+        metrics)``, the reference's loss: ``ce``, plus for the moe family
+        ``aux_loss_weight * aux`` (the MoE blocks' aux terms summed) and,
+        with an MTP head, ``0.3 * mtp`` (``_mtp_loss``); ``metrics`` holds
+        ``"ce"`` and, where they enter, ``"aux"`` and ``"mtp"``. The
+        embedding is the one-hot contraction (``layers.embed_onehot``), so
+        the gradient is the same from run to run on the card. The ssm
+        family's ``ln0`` is ``_backbone``'s; its ``final_norm_b`` is read
+        by nothing, so autograd gives it no gradient (the trainers turn
+        that into zeros, the reference's)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
-        x = self._hidden(params, batch,
-                         embed_onehot(params["embed"]["w"], tokens))
+        x, aux = self._hidden(params, batch,
+                              embed_onehot(params["embed"]["w"], tokens))
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         ce = cross_entropy(h @ params["lm_head"]["w"], labels,
                            cfg.vocab_size)
-        return ce, {"ce": ce}
+        loss, metrics = ce, {"ce": ce}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            metrics["aux"] = aux
+        if cfg.mtp_depth and "mtp" in params:
+            mtp = self._mtp_loss(params, h, tokens, labels)
+            loss = loss + 0.3 * mtp
+            metrics["mtp"] = mtp
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, tokens, labels):
+        """DeepSeek's MTP: ``[norm_h(h_t) ; norm_e(emb(token_{t+1}))]``
+        through ``proj``, one dense block (MLA attention, outside
+        ``_remat``, as the reference's) and the shared final norm and head;
+        its ``logits[:, :-1]`` scored against ``labels[:, 2:]``, the
+        reference's pairing. h: the final-normed hidden states [B, S, d]."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        emb_next = embed_onehot(params["embed"]["w"], tokens[:, 1:])
+        h_in = torch.cat([rms_norm(h[:, :-1], mp["norm_h"], cfg.norm_eps),
+                          rms_norm(emb_next, mp["norm_e"], cfg.norm_eps)],
+                         dim=-1)
+        positions = torch.arange(h_in.shape[1], device=h.device)
+        x, _ = self._block_fwd(mp["block"], h_in @ mp["proj"], positions)
+        logits = rms_norm(x, params["final_norm"],
+                          cfg.norm_eps) @ params["lm_head"]["w"]
+        return cross_entropy(logits[:, :-1], labels[:, 2:], cfg.vocab_size)
 
     # ================================================================ caches
     def init_cache(self, batch: int, seq: int,
                    dtype=torch.bfloat16) -> Params:
         """Zeroed caches, ``[L, ...]`` for every leaf (vlm's self-attention
         ``[G, per, ...]``, its cross caches ``[G, ...]`` over
-        ``n_patches``). ``dtype`` is the K and V caches' (the cross caches'
-        too); the recurrent states are f32 whatever it is, and so is hymba's
-        conv history (the reference builds it with ``init_ssm_cache``'s
-        default dtype)."""
+        ``n_patches``; MLA's latent ``c_kv`` and rope key ``k_rope`` for
+        every layer, the leading dense ones too). ``dtype`` is the K and V
+        caches' (the cross caches' and MLA's too); the recurrent states are
+        f32 whatever it is, and so is hymba's conv history (the reference
+        builds it with ``init_ssm_cache``'s default dtype)."""
         cfg = self.cfg
         L = cfg.n_layers
         if cfg.family == "ssm":
             return _zeros_stacked(L, rwkv6.init_rwkv_cache(
                 batch, cfg.d_model, cfg.n_heads, cfg.rwkv, self.device))
+        if cfg.mla is not None:
+            return {"mla": _zeros_stacked(L, mla.init_mla_cache(
+                batch, seq, cfg.mla, dtype, self.device))}
         head = (cfg.n_kv_heads, cfg.resolved_head_dim)
         zeros = lambda *lead: torch.zeros(lead + head, dtype=dtype,
                                           device=self.device)
@@ -475,6 +575,10 @@ class Model:
         if cfg.family == "ssm":
             x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
             x, cache = self._decode_rwkv(params, cache, x)
+        elif cfg.mla is not None:
+            x, cache = self._decode_mla(params, cache, x, pos)
+        elif cfg.family == "moe":
+            x, cache = self._decode_moe_gqa(params, cache, x, pos)
         elif cfg.family == "vlm":
             x, cache = self._decode_vlm(params, cache, x, pos)
         elif cfg.family == "encdec":
@@ -498,8 +602,46 @@ class Model:
                            + rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
         else:
             x = x + a
+        return self._decode_ffn(p, x), kc, vc
+
+    def _decode_ffn(self, p, x):
+        """A decode block's second half: ``x`` plus its MLP or, in a MoE
+        block, its routed MoE over the B tokens (T = B, as the reference
+        routes ``h2[:, None, :]``)."""
+        cfg = self.cfg
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + apply_mlp(p["mlp"], h2, cfg.act), kc, vc
+        if "moe" in p:
+            out, _ = moe.apply_moe(p["moe"], h2[:, None, :], mo=cfg.moe,
+                                   act=cfg.act)
+            return x + out[:, 0]
+        return x + apply_mlp(p["mlp"], h2, cfg.act)
+
+    def _decode_layers(self, params):
+        """The moe family's blocks in order as per-layer views."""
+        return self._moe_layers(params, lambda tree, n: [
+            layer_params(tree, i) for i in range(n)])
+
+    def _decode_moe_gqa(self, params, cache, x, pos):
+        """kimi's GQA blocks, dense then MoE, each writing its layer of
+        ``k`` / ``v`` in place."""
+        for i, p in enumerate(self._decode_layers(params)):
+            x, _, _ = self._decode_block(p, x, cache["k"][i],
+                                         cache["v"][i], pos, None)
+        return x, cache
+
+    def _decode_mla(self, params, cache, x, pos):
+        """deepseek's MLA blocks, dense then MoE: the absorbed decode
+        against each layer's latent cache (written in place), then the MLP
+        or the MoE."""
+        cfg = self.cfg
+        mc = cache["mla"]
+        for i, p in enumerate(self._decode_layers(params)):
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            a, _ = mla.decode_mla(p["attn"], h, layer_params(mc, i), pos,
+                                  n_heads=cfg.n_heads, m=cfg.mla,
+                                  theta=cfg.rope_theta)
+            x = self._decode_ffn(p, x + a)
+        return x, cache
 
     def _decode_dense(self, params, cache, x, pos):
         """Dense and hybrid layers; every cache leaf's ``[i]`` is a view, so
@@ -579,7 +721,7 @@ class Model:
         multiple of their GLA chunk (the reference asserts it; nothing is
         padded)."""
         cfg = self.cfg
-        x = self._hidden(params, batch, embed_lookup(params["embed"]["w"],
-                                                     batch["tokens"]))
+        x, _ = self._hidden(params, batch, embed_lookup(
+            params["embed"]["w"], batch["tokens"]))
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return h[:, -1, :] @ params["lm_head"]["w"], None

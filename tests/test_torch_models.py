@@ -69,8 +69,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DENSE = ("stablelm-1.6b", "yi-9b", "qwen2.5-14b")
 RECURRENT = ("hymba-1.5b", "rwkv6-1.6b")
 CROSS = ("whisper-medium", "llama-3.2-vision-11b")
-NON_DENSE = tuple(a for a in ARCH_IDS if get_config(a).family != "dense")
-NOT_PORTED = tuple(a for a in NON_DENSE if a not in RECURRENT + CROSS)
+MOE = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
 #: vlm's cross gates, set non-zero on both sides: at the reference's init
 #: (zeros) every cross block is the identity
 VLM_GATES = {"gate_attn": 0.7, "gate_mlp": -0.4}
@@ -338,8 +337,8 @@ def _redraw_constants(tree, seed=100):
 def _reference_params(cfg_j, seed):
     """The reference's init as numpy (what crosses to the port), biases
     made nonzero so the qkv_bias branch is exercised, for the recurrent
-    families every constant leaf redrawn (``_redraw_constants``), and
-    vlm's cross gates set to ``VLM_GATES``."""
+    and moe families every constant leaf redrawn (``_redraw_constants``),
+    and vlm's cross gates set to ``VLM_GATES``."""
     params = jax.tree.map(np.asarray, ModelJ(cfg_j).init(
         jax.random.PRNGKey(seed)))
     if cfg_j.family == "vlm":
@@ -347,11 +346,11 @@ def _reference_params(cfg_j, seed):
         for name, value in VLM_GATES.items():
             cross[name] = np.full(cross[name].shape, value, np.float32)
         return params
-    attn = params["layers"].get("attn", {})
+    attn = params.get("layers", {}).get("attn", {})
     for i, name in enumerate(("bq", "bk", "bv")):
         if name in attn:
             attn[name] = _rand(60 + i, *attn[name].shape, scale=0.1)
-    if cfg_j.family in ("hybrid", "ssm"):
+    if cfg_j.family in ("hybrid", "ssm", "moe"):
         params = _redraw_constants(params)
     return params
 
@@ -386,6 +385,11 @@ MODEL_CASES = {
     # caches, as the reference serves them
     "whisper-medium": {},
     "llama-3.2-vision-11b": {},
+    # the moe family: MLA with its latent-cache decode (deepseek) and GQA
+    # (kimi), a dense block then a MoE block; prefill routes 12 tokens at
+    # capacity 12 and decode 2 at capacity 2, so neither drops a token
+    "deepseek-v3-671b": {},
+    "kimi-k2-1t-a32b": {},
 }
 
 
@@ -692,10 +696,12 @@ def test_recurrent_prefill_needs_whole_chunks():
                       {"tokens": torch.zeros((1, 6), dtype=torch.long)})
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch).reduced(), device="cpu")
+def test_other_families_raise_not_implemented():
+    """A family the port does not run is refused when the model is built."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              family="retnet")
+    with pytest.raises(NotImplementedError, match="family 'retnet'"):
+        Model(cfg, device="cpu")
 
 
 # ----------------------------------------------------------------- convert
