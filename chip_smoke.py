@@ -73,7 +73,7 @@
    twice, bit for bit; ``launch.fl_train.run(engine="round")`` at the
    CLI's defaults (bcrs_opwa, C = 8, 4 rounds), eftopk at C = 4 (4
    rounds; its f32 residuals do not fit at C = 8) and bcrs_opwa at C = 8
-   with ``fail_prob`` 0.3 (masked slots), these two at ``CUT_LAYERS`` of
+   with ``fail_prob`` 0.3 (masked slots), all three at ``CUT_LAYERS`` of
    the 24 layers (full width), each kernel launched leaves x
    rounds, wall per round (first apart), peak memory and the merge's
    share of a round from CUDA events around each leaf's
@@ -82,12 +82,13 @@
    kernel launched 12 times a replay, params, EF residuals and losses
    bit for bit equal to the round engine's, the eager round, the replay
    wall a round, the capture's seconds and peak memory; two replays under
-   the profiler (device idle share) and the device time the fail run's
-   masked slots cost; one round's deltas from the eftopk state through
-   the kernel and the plain route of ``compress_merge_leaf`` (masks, ks,
-   residuals bitwise; agg within 2*C*2^-24*sum|w v|; new bf16 params
-   within one ULP); ``fl_train --population`` (bcrs_opwa, P = 10,000,
-   cohort 8, 3 rounds; at ``CUT_LAYERS`` layers) and ``--engine async`` (bcrs_opwa, K = M = 2, a
+   the profiler (device idle share; at ``CUT_LAYERS``) and the device
+   time the fail run's masked slots cost; one round's deltas from the
+   eftopk state through the kernel and the plain route of
+   ``compress_merge_leaf`` (masks, ks, residuals bitwise; agg within
+   2*C*2^-24*sum|w v|; new bf16 params within one ULP); ``fl_train
+   --population`` (bcrs_opwa, P = 10,000, cohort 8, 3 rounds; at
+   ``CUT_LAYERS`` layers) and ``--engine async`` (bcrs_opwa, K = M = 2, a
    version ring of 2, 3 flushes) at full width, launches counted, the
    async run's first flush (the whole raveled model, [2, n], C*n = 3.3e9)
    held against both kernels' twins bit for bit; restarts
@@ -95,7 +96,7 @@
    bit: the round engine (eftopk, 3 rounds then resume to 6), population
    and async (eftopk over a sparse client store, the store included);
 8. the centralised training phase (``launch.train`` at stablelm-1.6b's
-   full width, the CLI's defaults: B = 8, S = 256, lr 1e-2, seed 0):
+   full width cut to ``CUT_LAYERS`` of its 24 layers, the CLI's defaults: B = 8, S = 256, lr 1e-2, seed 0):
    dense sgd and ``--compressed-pods 4 --wire-cr 0.05`` (bcrs_opwa, sgd),
    4 steps each, with the counts reset just before and read just after
    (no merge launch dense; ``threshold_find`` and ``fused_merge`` once per
@@ -144,7 +145,7 @@
    ``gla.summation_bound`` (its log-decay term from each chunk's
    ``sum |g|``, the largest printed);
 11. the recurrent training phase (hymba-1.5b and rwkv6-1.6b at full
-   width, bf16, seed 0, ``remat="full"``; ``launch.train``'s defaults:
+   width cut to ``CUT_LAYERS`` of their 32 / 24 layers, bf16, seed 0, ``remat="full"``; ``launch.train``'s defaults:
    B = 8, S = 256, two GLA chunks): one batch's gradient twice, bit for
    bit; the loss and every gradient under ``remat`` "none", "full" and
    "dots", bit for bit, with each mode's peak memory; ``launch.train``
@@ -160,7 +161,8 @@
    the checkpointed backward inside it; bit for bit against the round
    engine);
 12. the cross-attention phase (whisper-medium, encdec, and
-   llama-3.2-vision-11b, vlm, at full width, bf16, seed 0; the vlm's
+   llama-3.2-vision-11b, vlm, at full width, bf16, seed 0; whisper whole,
+   the vlm at 2 of its 8 groups throughout; the vlm's
    cross gates set to 0.7 / -0.4, since at their initial zeros every cross
    block is the identity): ``launch.serve.generate`` as in 9 (zero
    launches; the cross caches stay zero, as the reference serves them),
@@ -171,9 +173,9 @@
    groups), ``Model.prefill`` against the stepped decode over cross
    caches filled here from the same frames or patches, within
    ``6 * 2^-24 * sqrt(L * R * K) * rms(logits)``, the served decode (zero
-   cross caches) failing it; ``launch.train`` dense sgd 4 steps (both at
-   full depth) and ``--compressed-pods`` (whisper 4 at full depth, the vlm
-   2 at 2 of 8 groups) 4 steps, launches, wall, peak, the merge's ms;
+   cross caches) failing it; ``launch.train`` dense sgd 4 steps and ``--compressed-pods`` (whisper 4 at ``CUT_LAYERS``,
+   the vlm 2 at 2 of 8 groups) 4 steps, launches, wall,
+   peak, the merge's ms;
    whisper's gradient twice and under the three remat modes bit for bit;
    one step's pod gradients through both merge routes and through
    ``threshold_find`` / ``fused_merge`` against their twins, bit for bit,
@@ -206,7 +208,26 @@
    steps each, both merge kernels against their twins bit for bit on every
    compressed leaf (the expert stacks among them); deepseek's ``fl_train
    --reduced`` through the round engine and the mesh scan (one captured
-   CUDA graph a round), bit for bit.
+   CUDA graph a round), bit for bit;
+15. the layout phase (the multi-card layout, ``dist.sharding`` and
+   ``launch.specs``; run right after the timings of 2, while this process
+   holds nothing on the card but its context): 4 ranks, rank r on card ``r % device_count`` (NCCL
+   when each has a card; gloo when they share one, with DTensor's
+   collectives routed through c10d's and every leaf merged on rank 0,
+   its shares moved by CUDA IPC; the backend, world size and cards
+   printed), qwen2.5-32b at full width cut to 2 of its 64 layers (2.54e9
+   parameters; the cut keeps the whole model's FSDP flag) on a (data 2,
+   model 2) mesh, B = 8, S = 256, the params drawn straight into their
+   layout (``launch.specs.init_params``): the f32 loss and every gradient
+   against the single-process port's on the same card within ``6 *
+   2^-24 * sqrt(K) * max|g|`` (each leaf's ratio printed), one gradient
+   with a zeroed shard and rounded to bf16 each failing it; the bf16
+   ``train`` cell twice, the same bits, wall a step, per-rank peak; the
+   ``train_compressed`` cell (2 pods, wire_cr 0.05) with ``threshold_find``
+   and ``fused_merge`` against their twins on every compressed leaf's
+   gathered pod gradients and the one-process merge's update and residuals
+   equal to the step's shards, bit for bit; the ``fl_round`` cell (2
+   clients, 2 local steps), finite; launches summed over the ranks.
 
 Any failed check exits nonzero. The last two lines are the ``kernels`` JSON
 and ``{"ok": true, "device": ...}``. Needs CUDA and the repository's
@@ -222,6 +243,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1537,8 +1559,11 @@ FL_ASYNC = dict(rounds=3, async_buffer_k=2, async_concurrency=2,
 #: pods and ``fl_train`` (round engine and mesh scan). What they hold (EF
 #: residuals, masked slots, the client store, the chunk carry, the merge
 #: of every leaf, the scan bit-equal to the round engine) does not depend
-#: on the depth; stablelm's CLI-default runs and every family's dense
-#: ``train`` stay at full depth.
+#: on the depth. Since the layout phase joined the script, the centralised
+#: training phase (stablelm), the recurrent training phase (hymba, rwkv6)
+#: and the vlm's serving and training run cut too (the vlm at 2 of its 8
+#: groups); the FL phase's leaf-shape twins, its full-width gradient and
+#: async flush, the serve phases and whisper keep their full depth.
 CUT_LAYERS = 8
 
 
@@ -2337,7 +2362,7 @@ def fl_train_phase(kern, zero, record):
                       (f"bcrs_opwa C=8 fail {FL_FAIL}",
                        dict(rounds=FL_ROUNDS, fail_prob=FL_FAIL))):
         cfg = fl.FLTrainConfig(engine="round", device="cuda", **kw)
-        depth = None if label == "bcrs_opwa C=8" else CUT_LAYERS
+        depth = CUT_LAYERS
         with at_depth(depth):
             runs[label], res, counts = fl_round_run(kern, zero, fl, cfg,
                                                     leaves, label)
@@ -2376,8 +2401,10 @@ def fl_train_phase(kern, zero, record):
     # two replays under the profiler, and what the masked slots cost: the
     # replay trains every slot, so a masked slot costs its share of the
     # replay's device time outside the merge
-    prof = profile_scan_replay(fl, fl.FLTrainConfig(engine="scan",
-                                                    device="cuda"), record)
+    with at_depth(CUT_LAYERS):
+        prof = profile_scan_replay(fl, fl.FLTrainConfig(engine="scan",
+                                                        device="cuda"),
+                                   record)
     busy = prof["device_busy_ms_per_replay"]
     fail = scans[f"bcrs_opwa C=8 fail {FL_FAIL}"]
     if busy != "not measured":
@@ -2580,6 +2607,10 @@ def train_routes(model, params, ef, batch, pod_crs, record,
              f"{len(shapes)} leaf shapes" if twins else ""))
 
 
+#: columns of a leaf that ``merge_twins_on_leaf`` runs the twin over at once
+TWIN_COLUMNS = 1 << 27
+
+
 def merge_twins_on_leaf(path, dl, res, w, ks):
     """One leaf's ``[C, *leaf]`` pod gradients and EF residuals through
     ``threshold_find`` and ``fused_merge`` (OPWA, the trainer's gamma, D =
@@ -2593,15 +2624,31 @@ def merge_twins_on_leaf(path, dl, res, w, ks):
     x = dl.float().reshape(c, -1)
     r = res.reshape(c, -1)
     th = tf.threshold_find(x, ks, r)
-    tp = tf.threshold_find_plain(x, ks.to(torch.int32), r)
+    # the twin a client (row) at a time: its thresholds are per row, and
+    # its int64 bit patterns of a full-width [C, n] leaf take 8 C n bytes
+    k32 = ks.to(torch.int32)
+    tp = torch.cat([tf.threshold_find_plain(x[i:i + 1], k32[i:i + 1],
+                                            r[i:i + 1]) for i in range(c)])
     check(torch.equal(th, tp),
           f"threshold_find on {path} {list(dl.shape)}: the twin's")
+    del tp
     kw = dict(opwa=True, gamma=tr.GAMMA, d=1, codec="none", scales=None)
-    got = fm.fused_merge(x, th, w, r, None, **kw)
-    want = fm.fused_merge_plain(x, th, w, r, None, **kw)
-    check(all(bits_equal(a, b) for a, b in zip(got, want)),
-          f"fused_merge on {path} {list(dl.shape)}: the twin's bits")
-    del x, th, got, want
+    # the kernel's outputs wait on the host while the twin runs over
+    # column blocks (it is elementwise along a leaf; whole, a full-width
+    # leaf's temporaries do not fit beside the layout's four ranks)
+    agg, new_r = (t.cpu() for t in fm.fused_merge(x, th, w, r, None, **kw))
+    torch.cuda.empty_cache()
+    n = x.shape[1]
+    same = True
+    for a in range(0, n, TWIN_COLUMNS):
+        b = min(a + TWIN_COLUMNS, n)
+        wa, wr = fm.fused_merge_plain(x[:, a:b], th, w, r[:, a:b], None,
+                                      **kw)
+        same &= (bits_equal(wa.cpu(), agg[a:b].contiguous())
+                 and bits_equal(wr.cpu(), new_r[:, a:b].contiguous()))
+        del wa, wr
+    check(same, f"fused_merge on {path} {list(dl.shape)}: the twin's bits")
+    del x, th, agg, new_r
     torch.cuda.empty_cache()
 
 
@@ -4129,7 +4176,11 @@ CROSS_F32_LAYERS = {"encdec": None, "vlm": 8}
 CROSS32_PROMPT, CROSS32_BATCH = 128, 2
 #: --compressed-pods: whisper at full depth, the vlm at 2 of 8 groups (its
 #: 9.78e9 parameters' pod gradients and f32 EF residuals would not fit)
-CROSS_PODS = {"whisper-medium": (4, None), "llama-3.2-vision-11b": (2, 8)}
+CROSS_PODS = {"whisper-medium": (4, CUT_LAYERS),
+              "llama-3.2-vision-11b": (2, 8)}
+#: the depth each family serves and trains at, cut for the script's time:
+#: whisper whole, the vlm at 2 of its 8 groups (8 self and 2 cross blocks)
+CROSS_DEPTH = {"whisper-medium": None, "llama-3.2-vision-11b": 8}
 
 
 def cross_memory(cfg, batch: int, seed: int, frames: int = WHISPER_FRAMES):
@@ -4438,8 +4489,9 @@ def cross_phase(kern, zero, record):
                   f"nothing left resident before {arch}: "
                   f"{resident / 2 ** 20:.1f} MiB allocated; largest live "
                   f"tensors {largest}")
-        serve = cross_serve(kern, zero, arch, record)
-        rec, counts = cross_train(kern, zero, arch, record)
+        with at_depth(CROSS_DEPTH[arch]):
+            serve = cross_serve(kern, zero, arch, record)
+            rec, counts = cross_train(kern, zero, arch, record)
         for name, n in counts.items():
             total[name] += n
         rec.update(serve=serve, resident_bytes_before=resident,
@@ -4929,6 +4981,797 @@ def moe_phase(kern, zero, record):
     return total
 
 
+LAYOUT_ARCH = "qwen2.5-32b"
+LAYOUT_LAYERS = 2             # of 64, full width: 2.54e9 parameters
+LAYOUT_MESH = (2, 2)          # (data, model)
+LAYOUT_RANKS = 4
+LAYOUT_BATCH = (8, 256)
+LAYOUT_LR = 0.01
+LAYOUT_WIRE_CR = 0.05         # the train_compressed cell's 2 pods
+LAYOUT_CLIENTS_STEPS = 2      # fl_round: 2 clients (the data axis), 2 steps
+LAYOUT_FAULT = ("layers", "mlp", "w_up")
+LAYOUT_SEED = 0
+LAYOUT_DEVICE = "cuda"        # the ranks' device type ("cpu" rehearses)
+
+
+def max_abs_chunked(a: torch.Tensor, b: torch.Tensor,
+                    chunk: int = 1 << 26) -> float:
+    """``max_abs`` over flat chunks of ``chunk`` elements, so that a
+    full-width leaf's f64 difference is never held whole."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return max((max_abs(a[i:i + chunk], b[i:i + chunk])
+                for i in range(0, a.numel(), chunk)), default=0.0)
+
+
+# ------------------------------------------- four ranks sharing one card
+# The layout phase runs its four ranks on the one card the run has. NCCL
+# refuses two ranks on a device, so they use gloo, whose functional
+# collectives crash on CUDA tensors (torch 2.11); and four whole leaves
+# with their merges do not fit the card beside each other. This rig
+# routes DTensor's collectives through c10d's and merges each leaf on
+# rank 0, moving the shares between the ranks' memories by CUDA IPC. A
+# deployment gives each rank a card and needs neither.
+_SYNC_LIBS: dict = {}
+
+
+def sync_functional_collectives(device_type: str = "cuda") -> None:
+    """Route DTensor's functional collectives on ``device_type`` tensors
+    through c10d's synchronous ones, for this process.
+
+    Under gloo torch 2.11's functional collectives
+    (``_c10d_functional.all_gather_into_tensor`` and the rest, then
+    ``wait_tensor``) crash on CUDA tensors, while
+    ``dist.all_gather_into_tensor`` and the other c10d calls on the same
+    groups work. DTensor redistributes through the functional ops only,
+    so this registers, for ``device_type``, kernels of those ops that call
+    the c10d collective and return its finished result (a later
+    ``wait_tensor`` finds no pending work). Call it once a process, after
+    ``init_process_group``, and only for a gloo group."""
+    if device_type in _SYNC_LIBS:
+        return
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+           "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def red(op):
+        """c10d's op for a functional op name; "avg" is a sum, divided
+        after (gloo has no average)."""
+        op = op.lower()
+        if op == "avg":
+            return dist.ReduceOp.SUM
+        if op not in ops:
+            raise NotImplementedError(f"reduce op {op!r} under gloo")
+        return ops[op]
+
+    def mean(out, op, n):
+        return out.div_(n) if op.lower() == "avg" else out
+
+    def all_gather(x, group_size, group_name):
+        out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    def reduce_scatter(x, op, group_size, group_name):
+        out = x.new_empty((x.shape[0] // group_size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), op=red(op),
+                                   group=_resolve_process_group(group_name))
+        return mean(out, op, group_size)
+
+    def all_reduce(x, op, group_name):
+        out = x.clone(memory_format=torch.contiguous_format)
+        group = _resolve_process_group(group_name)
+        dist.all_reduce(out, op=red(op), group=group)
+        return mean(out, op, group.size())
+
+    def all_to_all(x, out_splits, in_splits, group_name):
+        rows = sum(out_splits) if len(out_splits) else x.shape[0]
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(),
+                               list(out_splits) or None,
+                               list(in_splits) or None,
+                               group=_resolve_process_group(group_name))
+        return out
+
+    def broadcast(x, src, group_name):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, group_src=src,
+                       group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (("all_gather_into_tensor", all_gather),
+                     ("reduce_scatter_tensor", reduce_scatter),
+                     ("all_reduce", all_reduce),
+                     ("all_to_all_single", all_to_all),
+                     ("broadcast", broadcast)):
+        lib.impl(name, fn, device_type.upper())
+    _SYNC_LIBS[device_type] = lib
+
+
+def layout_shares(shape, mesh, plc):
+    """Every rank's (rank, starts, sizes) of a tensor of ``shape`` laid out
+    ``plc`` on the ``DeviceMesh`` ``mesh`` (DTensor's chunking, mesh dims
+    in order)."""
+    ranks = mesh.mesh.flatten().tolist()
+    mshape = tuple(mesh.mesh.shape)
+    out = []
+    for k, r in enumerate(ranks):
+        coord = np.unravel_index(k, mshape)
+        starts, sizes = [0] * len(shape), list(shape)
+        for i, p in enumerate(plc):
+            if p.is_shard():
+                d, n = p.dim, mshape[i]
+                step = -(-sizes[d] // n)
+                lo = min(coord[i] * step, sizes[d])
+                starts[d] += lo
+                sizes[d] = min(lo + step, sizes[d]) - lo
+        out.append((r, starts, sizes))
+    return out
+
+
+def ipc_views(t: torch.Tensor, root: int):
+    """Rank ``root``'s views of every rank's ``t`` (CUDA tensors on the
+    card the ranks share), opened by CUDA IPC, indexed by rank; None on
+    the other ranks. Each rank keeps its ``t`` until ``done_with_views``."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    me = dist.get_rank()
+    handles = [None] * dist.get_world_size()
+    dist.all_gather_object(handles, None if me == root or not t.numel()
+                           else reduce_tensor(t))
+    if me != root:
+        return None
+    return [t if r == me else (None if h is None else h[0](*h[1]))
+            for r, h in enumerate(handles)]
+
+
+def done_with_views(root: int) -> None:
+    """Rank ``root``'s copies finished, then every rank past one barrier
+    with the IPC blocks it sent released."""
+    import torch.distributed as dist
+    if dist.get_rank() == root:
+        torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.ipc_collect()
+
+
+def gather_to_root(x, root: int = 0):
+    """A DTensor's whole value on rank ``root`` (None on the others), rank
+    ``root`` copying every rank's share straight from its memory on the
+    shared card; anything else as it is."""
+    from repro_torch.dist import sharding as shd
+    if not shd.is_dtensor(x):
+        return x
+    import torch.distributed as dist
+    local = x.to_local().contiguous()
+    if not local.is_cuda:             # a rehearsal on CPU ranks
+        whole = x.full_tensor()
+        return whole if dist.get_rank() == root else None
+    views = ipc_views(local, root)
+    whole = None
+    if dist.get_rank() == root:
+        whole = torch.empty(tuple(x.shape), dtype=x.dtype,
+                            device=local.device)
+        for r, st, sz in layout_shares(x.shape, x.device_mesh,
+                                       x.placements):
+            if math.prod(sz):
+                idx = tuple(slice(a, a + b) for a, b in zip(st, sz))
+                whole[idx].copy_(views[r].reshape(sz))
+        del views
+    done_with_views(root)
+    return whole
+
+
+def scatter_from_root(whole, ref, root: int, dtype):
+    """``whole`` (of ``dtype``, on rank ``root``; None elsewhere) laid out
+    as the DTensor ``ref``, rank ``root`` copying each rank's share
+    straight into its memory on the shared card."""
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    shares = layout_shares(ref.shape, ref.device_mesh, ref.placements)
+    me = dist.get_rank()
+    mine = next(sz for r, _, sz in shares if r == me)
+    local = torch.empty(mine, dtype=dtype, device=ref.to_local().device)
+    views = ipc_views(local, root)
+    if me == root:
+        for r, st, sz in shares:
+            if math.prod(sz):
+                idx = tuple(slice(a, a + b) for a, b in zip(st, sz))
+                views[r].copy_(whole[idx].reshape(sz))
+        del views
+    done_with_views(root)
+    return shd.from_local(local, ref.device_mesh, ref.placements, ref.shape)
+
+
+def merge_on_root(fn, inputs, outs_like):
+    """``sharding.leaf_whole`` for ranks that share a card
+    (``sharding.set_leaf_whole_hook``): rank 0 gathers the inputs, runs
+    ``fn`` alone and scatters each output's shares back; the values are
+    the bits every rank's own ``full_tensor()`` and ``fn`` would give."""
+    import torch.distributed as dist
+    root = 0
+    # what each rank's allocator caches is of no use to the others
+    torch.cuda.empty_cache()
+    wholes = [gather_to_root(x, root) for x in inputs]
+    outs = (fn(*wholes) if dist.get_rank() == root
+            else [None] * len(outs_like))
+    del wholes
+    dtypes = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
+    res = []
+    for r, o in zip(outs_like, outs):
+        # 0: no output; else 1 + the index of its dtype
+        code = torch.tensor([0 if o is None else 1 + dtypes.index(o.dtype)],
+                            dtype=torch.int32)
+        dist.broadcast(code, src=root)
+        c = int(code)
+        res.append(scatter_from_root(o, r, root, dtypes[c - 1])
+                   if r is not None and c else None)
+    return res
+
+
+def layout_free() -> None:
+    """Drop what Python no longer reaches and give the cached blocks back
+    to the card, so that ranks sharing it see each other's frees, and the
+    pinned host blocks that gloo's staging of CUDA tensors left cached
+    back to the host."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not torch.cuda.is_available():
+        return
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        release = getattr(torch._C, name, None)
+        if release is not None:
+            release()
+            break
+
+
+def tensor_sha256(t: torch.Tensor, chunk: int = 1 << 28) -> str:
+    """SHA-256 of a tensor's bytes, copied to the host a chunk at a time."""
+    import hashlib
+    h = hashlib.sha256()
+    flat = t.contiguous().reshape(-1).view(torch.uint8)
+    for i in range(0, flat.numel(), chunk):
+        h.update(flat[i:i + chunk].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+LAYOUT_FREE_SEEN: list = []   # the card's free bytes at rank 0's marks
+
+
+def layout_say(rank: int, what: str) -> None:
+    """Rank 0's progress through the layout phase, flushed as it goes,
+    with the card's free memory (all processes on it) at that mark."""
+    if rank == 0:
+        free = (torch.cuda.mem_get_info()[0] if LAYOUT_DEVICE == "cuda"
+                else 0)
+        LAYOUT_FREE_SEEN.append(free)
+        print(f"[layout rank 0] {time.strftime('%H:%M:%S')} "
+              f"({free / 2 ** 30:.2f} GiB free on the card) {what}",
+              flush=True)
+
+
+def layout_config(n_layers: int):
+    """qwen2.5-32b at full width cut to ``n_layers`` layers, bf16; the cut
+    keeps the full config's FSDP flag (``fsdp_threshold`` 0 when the whole
+    model is at or above it), so the cut's params shard as the whole
+    model's do."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(LAYOUT_ARCH)
+    cut = cut_config(full, n_layers)
+    if full.n_params() >= full.fsdp_threshold:
+        cut = dataclasses.replace(cut, fsdp_threshold=0)
+    return cut
+
+
+def config_overrides(cfg) -> dict:
+    """Every field of ``cfg``, for ``build_cell(overrides=...)``."""
+    import dataclasses
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def layout_process_group(rank: int, world: int, init_method=None):
+    """Rank ``rank`` of ``world`` on card ``rank % device_count``: NCCL
+    when every rank has a card of its own, gloo when ranks share one (NCCL
+    refuses two ranks on a device), with DTensor's functional collectives
+    routed through c10d's (``sync_functional_collectives``) and every
+    leaf merged on rank 0 (``merge_on_root``).
+    Returns (backend, device)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    if LAYOUT_DEVICE == "cpu":
+        n, dev, backend = 0, torch.device("cpu"), "gloo"
+    else:
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", rank % n)
+        torch.cuda.set_device(dev)
+        backend = "nccl" if n >= world else "gloo"
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(minutes=20))
+    if backend == "gloo" and dev.type == "cuda":
+        sync_functional_collectives("cuda")
+        shd.set_leaf_whole_hook(merge_on_root)
+    return backend, dev
+
+
+def layout_batch(cfg, dev, lead=(), seed=11):
+    """Seeded tokens [*lead, B, S] (and labels, shifted by one) on ``dev``:
+    the same on every rank."""
+    b, s = LAYOUT_BATCH
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, tuple(lead) + (b, s + 1),
+                         generator=g, dtype=torch.int32)
+    return {"tokens": toks[..., :-1].contiguous().to(dev),
+            "labels": toks[..., 1:].contiguous().to(dev)}
+
+
+def upcast_placed(tree):
+    """A DTensor tree's floating leaves as f32 DTensors of the same
+    layout, each local piece upcast."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.tree import tree_from_items, tree_items
+    out = []
+    for path, x in tree_items(tree):
+        if x.is_floating_point() and x.dtype != torch.float32:
+            x = shd.from_local(x.to_local().float(), x.device_mesh,
+                               x.placements, x.shape)
+        out.append((path, x))
+    return tree_from_items(out)
+
+
+def layout_f32_bound(k: int) -> float:
+    """The f32 check's bound on ``|sharded - single| / max|g|`` for a
+    gradient whose backward sums ``k`` terms in all (the sum of its
+    reduction lengths): the root-sum-square ``6 * 2^-24 * sqrt(k)``.
+
+    The two runs add the same terms in other orders: the model axis
+    splits each contraction into partial sums added after, the data
+    axis splits the batch's, and cuBLAS tiles the shorter local products
+    otherwise, so any of the ``k`` adds may round differently. The worst
+    case grows linearly in ``k`` (``k * 2^-24``, 1.3% of max|g| at the
+    2-layer cut); modelled as independent roundings of either sign, of
+    at most 2^-24 of max|g| each, their total grows as ``sqrt(k)``, and
+    the bound is six standard deviations of that walk (1.7e-4 of max|g|
+    at the cut). A gradient rounded to bf16 (up to 2^-9 relative) or a
+    shard lost lands outside it."""
+    return 6.0 * 2.0 ** -24 * math.sqrt(k)
+
+
+def layout_f32_check(rank, dm, cell, cfg, batch):
+    """The sharded f32 loss and gradients against the single-process
+    port's on the same card: rank 0 runs the whole cut model first (the
+    bf16 init upcast, no rules), keeps the loss and gradients on the host
+    and frees the card before the others draw; then every rank draws its
+    share (``launch.specs.init_params``), upcasts it and runs
+    ``loss_and_grads`` with the gradients pinned to the params' layout (the
+    train step's first half). Each gradient is gathered and held against
+    the single process's within ``layout_f32_bound``; the same check on
+    the gradient of ``LAYOUT_FAULT`` with rank 1's shard zeroed, and on
+    that gradient rounded to bf16, must fail it. Returns rank 0's record
+    (None elsewhere): the worst ratio to the bound, each leaf's, and each
+    fault's."""
+    import dataclasses
+    import gc
+    import torch.distributed as dist
+    from repro_torch.dist import grad_sync
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_items
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b, s = LAYOUT_BATCH
+    k = cfg.n_layers * (b * s + cfg.d_model + cfg.d_ff + s) + cfg.vocab_size
+    tol = layout_f32_bound(k)
+    single = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        with shd.use_rules(None):
+            params = Model(cfg, device=LAYOUT_DEVICE).init(LAYOUT_SEED)
+            upcast_in_place(params)
+            torch.cuda.reset_peak_memory_stats()
+            loss, _, grads = grad_sync.loss_and_grads(
+                Model(cfg32, device=LAYOUT_DEVICE).loss_fn, params, batch)
+            peak = torch.cuda.max_memory_allocated()
+            single = (float(loss), [g.cpu() for g in grads])
+            del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+    layout_say(rank, "single-process f32 step done")
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p32 = upcast_placed(specs.init_params(cell, LAYOUT_SEED, dm))
+    items = tree_items(p32)
+    pb = specs.place_args(cell, ((), (), batch), dm)[2]
+    loss, _, grads = grad_sync.loss_and_grads(
+        Model(cfg32, device=LAYOUT_DEVICE).loss_fn, p32, pb)
+    with shd.layout_context(p32):
+        grads = shd.pin(items, grads, cell.in_shardings[0],
+                        Model.stacked_dims)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    sharded_peak = torch.cuda.max_memory_allocated()
+    paths = [path for path, _ in items]
+    del p32, items
+    layout_free()
+    layout_say(rank, f"sharded f32 gradients in {sharded_s:.1f} s")
+    out = (dict(k=k, tol=tol, worst=0.0, leaves=len(paths), ratios={})
+           if rank == 0 else None)
+    loss = float(shd.full(loss))
+    for i, (path, g) in enumerate(zip(paths, grads)):
+        # each gradient whole on rank 0 only (CUDA IPC on the shared card)
+        whole = gather_to_root(g, 0)
+        faults = {}
+        if path == LAYOUT_FAULT:
+            zeroed = g.to_local().clone()
+            if dist.get_rank() == 1:
+                zeroed.zero_()
+            rounded = g.to_local().to(torch.bfloat16).float()
+            for name, local in (("zeroed_shard", zeroed),
+                                ("bf16_rounded", rounded)):
+                faults[name] = gather_to_root(shd.from_local(
+                    local, g.device_mesh, g.placements, g.shape), 0)
+            del zeroed, rounded
+        if rank == 0:
+            want = single[1][i].to(whole.device)
+            bound = tol * float(want.abs().max())
+            ratio = max_abs_chunked(whole, want) / bound if bound else (
+                0.0 if torch.equal(whole, want) else math.inf)
+            out["ratios"]["/".join(path)] = ratio
+            out["worst"] = max(out["worst"], ratio)
+            for name, fault in faults.items():
+                out[f"{name}_ratio"] = max_abs_chunked(fault, want) / bound
+            del want
+        del whole, faults
+        grads[i] = None
+        layout_free()
+    del grads
+    layout_free()
+    if rank == 0:
+        out.update(loss=loss, single_loss=single[0],
+                   loss_ratio=abs(loss - single[0]) / (
+                       tol * abs(single[0])),
+                   single_s=single_s, single_peak_bytes=peak,
+                   sharded_s=sharded_s, sharded_peak_bytes=sharded_peak)
+    return out
+
+
+def layout_dense_runs(dm, cell, params, batch, kern):
+    """The bf16 ``train`` cell twice from the same params: the same bits
+    (each rank's shards), a finite loss, wall a step, peak memory."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.tree import tree_items
+    outs, walls, peaks = [], [], []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (new_p, _, m), counts = drive(kern, lambda: cell.fn(params, (),
+                                                            batch))
+        walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        outs.append(([x.to_local() for _, x in tree_items(new_p)],
+                     float(shd.full(m["loss"]))))
+        del new_p
+    same = all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
+    return dict(wall_s=walls, peak_bytes=peaks, loss=outs[0][1],
+                same_bits=same and outs[0][1] == outs[1][1],
+                launches={k: v for k, v in counts.items() if v})
+
+
+def layout_compressed(dm, cell, params, batch, kern):
+    """The ``train_compressed`` cell (2 pods at ``LAYOUT_WIRE_CR``) once,
+    launches counted; each rank's shares of its new params and residuals
+    kept as SHA-256s. Then, with the counts left alone, each leaf's pod
+    gradients (``pod_gradients``, the step's own first half) brought whole
+    to one place as the step brings them (``sharding.leaf_whole``):
+    ``threshold_find`` and ``fused_merge`` against their twins
+    (``merge_twins_on_leaf``), and ``compress_merge_leaf`` there on them,
+    whose update and residuals, cut to every rank's share, must hash as
+    the step's did (the same bits)."""
+    import torch.distributed as dist
+    from repro_torch.core import compression as comp
+    from repro_torch.dist import grad_sync
+    from repro_torch.dist import sharding as shd
+    from repro_torch.fed.engine import compress_merge_leaf
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_items
+    opt = make_optimizer("sgd", LAYOUT_LR)
+    state = grad_sync.init_compressed_state(opt, params, n_pods=2)
+    dev = batch["tokens"].device
+    crs = torch.tensor([LAYOUT_WIRE_CR, LAYOUT_WIRE_CR / 2], device=dev)
+    coeffs = torch.tensor([0.5, 0.5], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (new_p, st, m), counts = drive(kern, lambda: cell.fn(
+        params, state, batch, crs, coeffs))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(shd.full(m["loss"]))
+    layout_say(dist.get_rank(), f"compressed step in {wall:.1f} s")
+    t0 = time.perf_counter()
+    # the step's shares, by their SHA-256, rank by rank (hashlib lets go
+    # of the GIL, so leaves hash side by side)
+    with ThreadPoolExecutor(2) as pool:
+        mine = list(pool.map(
+            lambda xy: (tensor_sha256(xy[0][1].to_local()),
+                        tensor_sha256(xy[1][1].to_local())),
+            zip(tree_items(new_p), tree_items(st["ef"]))))
+    hash_s = time.perf_counter() - t0
+    ef_plc = [(y.placements, tuple(y.shape))
+              for _, y in tree_items(st["ef"])]
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    del new_p, st, state, mine
+    layout_free()
+    model = Model(cell.meta["cfg"], device=LAYOUT_DEVICE)
+    t0 = time.perf_counter()
+    pods, _, _ = grad_sync.pod_gradients(model.loss_fn, params, batch, 2)
+    pods_s = time.perf_counter() - t0
+    twins_s = 0.0
+    checked, same = [], True
+    for i, (path, p) in enumerate(tree_items(params)):
+        g, pods[i] = pods[i], None
+        e_plc, e_shape = ef_plc[i]
+
+        def shares_match(whole, plc, which):
+            """Each rank's share of ``whole`` hashes as the step's did (the
+            shares hashed side by side)."""
+            nonlocal hash_s
+            t0 = time.perf_counter()
+
+            def one(share):
+                r, st_, sz = share
+                return tensor_sha256(whole[tuple(
+                    slice(a, a + b) for a, b in zip(st_, sz))]) == \
+                    everyone[r][i][which]
+            shares = layout_shares(whole.shape, dm, plc)
+            with ThreadPoolExecutor(len(shares)) as pool:
+                ok = all(list(pool.map(one, shares)))
+            hash_s += time.perf_counter() - t0
+            return ok
+
+        def check_leaf(g, pw):
+            nonlocal twins_s
+            n = pw.numel()
+            gf = g.reshape(2, n).float()
+            if n < TRAIN_MIN_LEAF:
+                agg = torch.tensordot(coeffs, gf, dims=([0], [0]))
+                ok = shares_match(torch.zeros(e_shape, device=gf.device),
+                                  e_plc, 1)
+            else:
+                ks = comp.k_for_ratio_traced(
+                    n, torch.clamp(crs, 0.0, LAYOUT_WIRE_CR))
+                res = torch.zeros_like(gf)
+                t0 = time.perf_counter()
+                merge_twins_on_leaf(path, gf, res, coeffs, ks)
+                twins_s += time.perf_counter() - t0
+                agg, new_e = compress_merge_leaf(
+                    gf, coeffs, ks, gamma=2.0, overlap_d=1, opwa=True,
+                    use_kernel="auto", residuals=res)
+                del res
+                ok = shares_match(new_e.reshape(e_shape), e_plc, 1)
+                del new_e
+            del gf
+            upd = pw - torch.full((), LAYOUT_LR, dtype=pw.dtype,
+                                  device=pw.device) * agg.reshape(
+                                      pw.shape).to(pw.dtype)
+            checked.append(ok and shares_match(upd, p.placements, 0))
+            return []
+
+        shd.leaf_whole(check_leaf, (g, p), ())
+        del g
+        layout_free()
+    return dict(wall_s=wall, peak_bytes=peak, loss=loss,
+                merged_leaves=sum(1 for _, x in tree_items(params)
+                                  if x.numel() >= TRAIN_MIN_LEAF),
+                checked_leaves=len(checked), same_bits=all(checked),
+                check_pods_s=pods_s, check_twins_s=twins_s,
+                check_hash_s=hash_s,
+                launches={k: v for k, v in counts.items() if v})
+
+
+def layout_fl_round(dm, params, cfg, kern):
+    """The ``fl_round`` cell: 2 clients (one a data slice), 2 local steps
+    of B/2 = 4 sequences, every leaf merged through the kernels once."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.tree import tree_items
+    cell = specs.build_cell(LAYOUT_ARCH, "train_4k", dm, "fl_round",
+                            lr=LAYOUT_LR, overrides=config_overrides(cfg),
+                            fl_local_steps=LAYOUT_CLIENTS_STEPS,
+                            device=LAYOUT_DEVICE)
+    c, steps = cell.meta["n_clients"], LAYOUT_CLIENTS_STEPS
+    bs = cell.args[1]["tokens"].shape[2]
+    b = layout_batch(cfg, LAYOUT_DEVICE, lead=(c, steps))
+    cb = {k: v[:, :, :bs] for k, v in b.items()}
+    coef = torch.full((c,), 1.0 / c, device=LAYOUT_DEVICE)
+    crs = torch.full((c,), LAYOUT_WIRE_CR, device=LAYOUT_DEVICE)
+    _, cbp, coefp, crsp = specs.place_args(cell, ((), cb, coef, crs), dm)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (new_p, loss), counts = drive(kern, lambda: cell.fn(params, cbp, coefp,
+                                                        crsp))
+    wall = time.perf_counter() - t0
+    loss = float(shd.full(loss))
+    finite = math.isfinite(loss) and all(
+        bool(torch.isfinite(x.to_local()).all()) for _, x in tree_items(new_p))
+    return dict(clients=c, local_steps=steps, batch_per_client=bs,
+                wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+                loss=loss, finite=finite,
+                launches={k: v for k, v in counts.items() if v})
+
+
+def layout_rank(rank: int, world: int, port: int, out_dir: str):
+    """One rank of the layout phase (``layout_phase``); writes its record
+    to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import fused_merge as fm
+    from repro_torch.kernels import threshold_find as tf
+    from repro_torch.launch import mesh as mesh_t
+    from repro_torch.launch import specs
+    from repro_torch.tree import tree_items
+    backend, dev = layout_process_group(rank, world,
+                                        f"tcp://localhost:{port}")
+    kern = {"threshold_find": tf.threshold_find,
+            "fused_merge": fm.fused_merge}
+    rec = dict(rank=rank, backend=backend, device=str(dev),
+               cards=torch.cuda.device_count(), world=world)
+    dm = mesh_t.device_mesh(mesh_t.make_mesh_from_spec(
+        LAYOUT_MESH, ("data", "model")), dev.type)
+    cfg = layout_config(LAYOUT_LAYERS)
+    batch = layout_batch(cfg, dev)
+    cell = specs.build_cell(LAYOUT_ARCH, "train_4k", dm, "train",
+                            lr=LAYOUT_LR, overrides=config_overrides(cfg),
+                            n_micro=1, device=LAYOUT_DEVICE)
+    rec["fsdp"] = shd.get_rules().fsdp
+    layout_say(rank, f"{backend}, {world} ranks, {dev}")
+    rec["f32"] = layout_f32_check(rank, dm, cell, cfg, batch)
+    layout_free()
+    layout_say(rank, f"f32 check: {rec['f32']}")
+    t0 = time.perf_counter()
+    params = specs.init_params(cell, LAYOUT_SEED, dm)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["param_bytes_local"] = sum(x.to_local().numel() * x.element_size()
+                                   for _, x in tree_items(params))
+    pb = specs.place_args(cell, ((), (), batch), dm)[2]
+    rec["dense"] = layout_dense_runs(dm, cell, params, pb, kern)
+    layout_free()
+    layout_say(rank, f"dense: {rec['dense']}")
+    ccell = specs.build_cell(LAYOUT_ARCH, "train_4k", dm, "train_compressed",
+                             lr=LAYOUT_LR, overrides=config_overrides(cfg),
+                             compressed_cr=LAYOUT_WIRE_CR,
+                             device=LAYOUT_DEVICE)
+    rec["compressed"] = layout_compressed(dm, ccell, params, pb, kern)
+    layout_free()
+    layout_say(rank, f"compressed: {rec['compressed']}")
+    rec["fl_round"] = layout_fl_round(dm, params, cfg, kern)
+    layout_say(rank, f"fl_round: {rec['fl_round']}")
+    rec["free_bytes_seen"] = LAYOUT_FREE_SEEN
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def layout_phase(kern, zero, record):
+    """The multi-card layout on the card the run has: 4 ranks (rank r on
+    card r % device_count; NCCL with four cards, gloo when they share
+    one), qwen2.5-32b at full width cut to ``LAYOUT_LAYERS`` layers on a
+    (data 2, model 2) mesh through ``launch.specs.build_cell``: the f32
+    gradients against the single process (``layout_f32_check``, with its
+    planted fault), the bf16 ``train`` cell twice (``layout_dense_runs``),
+    the ``train_compressed`` cell with both merge kernels against their
+    twins and the one-process merge (``layout_compressed``), the
+    ``fl_round`` cell (``layout_fl_round``). The kernels were built before
+    the ranks start. Returns the launches per kernel summed over ranks."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    resident, largest = resident_on_card()
+    check(resident < RESIDENT_LIMIT,
+          f"nothing left resident before the layout phase: "
+          f"{resident / 2 ** 20:.1f} MiB; largest {largest}")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    free, total_mem = torch.cuda.mem_get_info()
+    print(f"[layout] before the ranks: {free / 2 ** 30:.2f} of "
+          f"{total_mem / 2 ** 30:.2f} GiB free on the card, this process "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+    out_dir = tempfile.mkdtemp(prefix="layout_phase_")
+    mp.spawn(layout_rank, args=(LAYOUT_RANKS, port, out_dir),
+             nprocs=LAYOUT_RANKS)
+    ranks = []
+    for r in range(LAYOUT_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    f32 = r0["f32"]
+    print(f"[layout] backend {r0['backend']}, world {r0['world']}, cards "
+          f"{sorted({r['device'] for r in ranks})} of {r0['cards']} "
+          f"({LAYOUT_RANKS} ranks), mesh (data {LAYOUT_MESH[0]}, model "
+          f"{LAYOUT_MESH[1]}), fsdp {r0['fsdp']}")
+    check(all(r["fsdp"] for r in ranks), "the cut keeps FSDP on")
+    print(f"[layout] f32 gradients / (6 * 2^-24 * sqrt(K) * max|g|), K = "
+          f"{f32['k']}, by leaf: "
+          f"{json.dumps({k: round(v, 5) for k, v in f32['ratios'].items()})}")
+    check(f32["worst"] <= 1.0 and f32["loss_ratio"] <= 1.0,
+          f"sharded f32 gradients within 6 * 2^-24 * sqrt(K) * max|g| of "
+          f"the single process: worst {f32['worst']:.3g}, loss "
+          f"{f32['loss_ratio']:.3g}")
+    for name in ("zeroed_shard", "bf16_rounded"):
+        check(f32[f"{name}_ratio"] > 1.0,
+              f"{'.'.join(LAYOUT_FAULT)} with its gradient's {name} fails "
+              f"the bound: {f32[f'{name}_ratio']:.3g}")
+    n_compressed = r0["compressed"]["merged_leaves"]
+    n_leaves = f32["leaves"]
+    # ranks sharing a card merge every leaf on rank 0 (merge_on_root)
+    shared = r0["cards"] < r0["world"]
+    total = dict(zero)
+    for r in ranks:
+        merges = not shared or r["rank"] == 0
+        d, c, fl = r["dense"], r["compressed"], r["fl_round"]
+        check(d["same_bits"] and math.isfinite(d["loss"]),
+              f"rank {r['rank']}: the bf16 step twice, same bits, finite")
+        check(not d["launches"], f"the dense step launches no merge kernel")
+        check(c["same_bits"], f"rank {r['rank']}: the compressed step's "
+              f"update and residuals are the one-process merge's bits")
+        check(c["checked_leaves"] == f32["leaves"] or (
+            r["rank"] and not c["checked_leaves"]),
+              f"rank {r['rank']}: checked {c['checked_leaves']} of "
+              f"{f32['leaves']} leaves (rank 0 checks them all)")
+        want = ({"threshold_find": n_compressed, "fused_merge": n_compressed}
+                if merges else {})
+        check_counts(c["launches"], want, f"rank {r['rank']} compressed")
+        check(fl["finite"], f"rank {r['rank']}: fl_round finite")
+        want = ({"threshold_find": n_leaves, "fused_merge": n_leaves}
+                if merges else {})
+        check_counts(fl["launches"], want, f"rank {r['rank']} fl_round")
+        for part in (c, fl):
+            for name, n in part["launches"].items():
+                total[name] += n
+    gb = 2.0 ** 30
+    summary = dict(
+        backend=r0["backend"], world=r0["world"], cards=r0["cards"],
+        f32=f32, init_s=max(r["init_s"] for r in ranks),
+        param_gb_per_rank=[r["param_bytes_local"] / gb for r in ranks],
+        dense_wall_s=[max(r["dense"]["wall_s"][i] for r in ranks)
+                      for i in range(2)],
+        dense_peak_gb=[max(r["dense"]["peak_bytes"]) / gb for r in ranks],
+        dense_loss=r0["dense"]["loss"],
+        compressed_wall_s=max(r["compressed"]["wall_s"] for r in ranks),
+        compressed_peak_gb=[r["compressed"]["peak_bytes"] / gb
+                            for r in ranks],
+        compressed_leaves=n_compressed,
+        compressed_check_s={k: r0["compressed"][f"check_{k}_s"]
+                            for k in ("pods", "twins", "hash")},
+        sum_of_rank_peaks_gb={
+            part: sum(max(r[part]["peak_bytes"]) if part == "dense"
+                      else r[part]["peak_bytes"] for r in ranks) / gb
+            for part in ("dense", "compressed", "fl_round")},
+        card_free_gib_at_marks=[f / gb for f in r0["free_bytes_seen"]],
+        fl_round_wall_s=max(r["fl_round"]["wall_s"] for r in ranks),
+        fl_round_peak_gb=[r["fl_round"]["peak_bytes"] / gb for r in ranks],
+        fl_round_loss=r0["fl_round"]["loss"],
+        launches={k: v for k, v in total.items() if v},
+        seconds=time.perf_counter() - t_phase)
+    record["layout_phase"] = summary
+    print(f"[layout phase] {json.dumps(summary)}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -4983,7 +5826,16 @@ def main() -> int:
     for row in rows:
         print("[timing]", json.dumps(row))
 
+    # the layout phase first, while this process holds nothing on the card
+    # but its context: its four ranks share the card with it
+    layout_launches = layout_phase(kern, {name: 0 for name in kern}, record)
+    check(layout_launches["threshold_find"] > 0
+          and layout_launches["fused_merge"] > 0,
+          f"both merge kernels launched in the layout phase: "
+          f"{layout_launches}")
     launches = run_paths(kern, record)
+    for name, n in layout_launches.items():
+        launches[name] += n
     reference_check(record)
     print(f"[reference] aggregate_updates kernels vs plain path: max |d agg| "
           f"{record['reference_check_max_abs_agg_diff']:.3g}")
@@ -5003,7 +5855,12 @@ def main() -> int:
     for name, err in fl_worst.items():
         worst[name] = max(worst[name], err)
     record["timings"] += fl_rows
-    train_launches = train_phase(kern, {name: 0 for name in kern}, record)
+    # cut for the script's time (full width): stablelm's 24 layers to
+    # CUT_LAYERS here, hymba's 32 and rwkv6's 24 below, the vlm to 2 of its
+    # 8 groups in the cross phase
+    with at_depth(CUT_LAYERS):
+        train_launches = train_phase(kern, {name: 0 for name in kern},
+                                     record)
     for name, n in train_launches.items():
         launches[name] += n
     if args.profile:
@@ -5029,8 +5886,9 @@ def main() -> int:
         launches[name] += n
     recurrent_serve_phase(kern, {name: 0 for name in kern}, record,
                           args.profile)
-    rec_train_launches = recurrent_train_phase(
-        kern, {name: 0 for name in kern}, record)
+    with at_depth(CUT_LAYERS):
+        rec_train_launches = recurrent_train_phase(
+            kern, {name: 0 for name in kern}, record)
     for name, n in rec_train_launches.items():
         launches[name] += n
     cross_launches = cross_phase(kern, {name: 0 for name in kern}, record)
@@ -5080,6 +5938,8 @@ def main() -> int:
             extra["cross_phase_launches"] = cross_launches[name]
         if moe_launches[name]:
             extra["moe_phase_launches"] = moe_launches[name]
+        if layout_launches[name]:
+            extra["layout_phase_launches"] = layout_launches[name]
         if fl_launches[name]:
             extra["fl_train_phase_launches"] = fl_launches[name]
             # the w_up leaf as the CLI's rounds give it: C = 8 (OPWA) and

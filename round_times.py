@@ -4,6 +4,7 @@ with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
     python3 round_times.py [--engine fused|scan] [--rows]
                            [--train | --prefill | --decode] [--arch ARCH]
+    torchrun --nproc-per-node 4 round_times.py --layout
                            [--src DIR]
                            [--out PATH]
 
@@ -54,6 +55,20 @@ they run at full width with their depth cut to ``DECODE_LAYERS``, one
 whole period (the leading dense layers and one MoE layer), as
 ``chip_smoke.py`` serves them.
 
+``--layout``: the multi-card layout at full depth, one process a rank
+under ``torchrun --nproc-per-node 4`` on four cards (NCCL; gloo if they
+share cards, as ``chip_smoke.layout_process_group`` picks): qwen2.5-32b
+whole (64 layers, bf16, sgd, remat "full") on a (data 2, model 2) mesh
+through ``launch.specs.build_cell``'s ``train`` cell, the params drawn
+straight into their layout (``launch.specs.init_params``), B = 8, S = 256
+(``chip_smoke.layout_batch``), ``LAYOUT_STEPS`` steps: wall a step (host
+clock ending in a synchronize, the first apart), each rank's peak memory,
+the first step's loss; the first step run twice from the same params,
+its new params held bit for bit on every rank; one step under the
+profiler, its device time by kernel and the share in NCCL's collective
+kernels (which spin while a peer is late: their time includes the wait).
+Rank 0 prints the line.
+
 ``--src`` names the ``src`` directory of the tree to time (default: this
 checkout's), so one card can time two trees in alternation: parent,
 change, change, parent, each its own process. Prints one JSON line;
@@ -63,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -303,6 +319,107 @@ def decode_times(src: str, archs: str) -> dict:
     return out
 
 
+LAYOUT_STEPS = 4
+
+
+def layout_times(src: str) -> dict:
+    """``--layout``: one rank of the full-depth layout run (the module
+    docstring); returns rank 0's record, None on the other ranks."""
+    import gc
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_t
+    from repro_torch.launch import specs
+    from repro_torch.tree import tree_items
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    backend, dev = cs.layout_process_group(rank, world)
+    dm = mesh_t.device_mesh(mesh_t.make_mesh_from_spec(
+        cs.LAYOUT_MESH, ("data", "model")), "cuda")
+    cfg = get_config(cs.LAYOUT_ARCH)
+    cell = specs.build_cell(cs.LAYOUT_ARCH, "train_4k", dm, "train",
+                            lr=cs.LAYOUT_LR, n_micro=1, device="cuda")
+    t0 = time.perf_counter()
+    params = specs.init_params(cell, cs.LAYOUT_SEED, dm)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = specs.place_args(cell, ((), (), cs.layout_batch(cfg, dev)),
+                             dm)[2]
+
+    def step(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new_p, _, m = cell.fn(p, (), batch)
+        torch.cuda.synchronize()
+        return new_p, float(shd.full(m["loss"])), time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    new_p, loss, wall = step(params)
+    first = [x.to_local().cpu() for _, x in tree_items(new_p)]
+    del new_p
+    gc.collect()
+    again, loss2, wall2 = step(params)
+    same = loss2 == loss and all(
+        torch.equal(x.to_local().cpu(), y)
+        for (_, x), y in zip(tree_items(again), first))
+    del first
+    walls += [wall, wall2]
+    losses += [loss, loss2]
+    params = again
+    del again
+    for _ in range(LAYOUT_STEPS - 1):
+        params, loss, wall = step(params)
+        walls.append(wall)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, loss, wall = step(params)
+    by_name = {}
+    for ev in prof.key_averages():
+        # "nccl:<collective>" entries are the profiler's own annotations
+        # of the NCCL kernels listed beside them: counted once, as kernels
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+                and not ev.key.startswith("nccl:")):
+            by_name[ev.key] = ev.self_device_time_total / 1e3
+    busy = sum(by_name.values())
+    coll = sum(ms for k, ms in by_name.items() if "nccl" in k.lower())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    mine = dict(rank=rank, peak_bytes=peak, same_bits=same,
+                device_ms=busy, collective_ms=coll,
+                profiled_wall_s=wall)
+    everyone = [None] * world
+    dist.all_gather_object(everyone, mine)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank:
+        return None
+    return dict(
+        src=src, gpu=torch.cuda.get_device_name(0), backend=backend,
+        world=world, cards=torch.cuda.device_count(), arch=cs.LAYOUT_ARCH,
+        n_params=cfg.n_params(), mesh=list(cs.LAYOUT_MESH),
+        batch=list(cs.LAYOUT_BATCH), init_s=init_s,
+        param_gb_per_rank=sum(x.to_local().numel() * x.element_size()
+                              for _, x in tree_items(params)) / 2 ** 30,
+        first_step_s=walls[0], first_step_again_s=walls[1],
+        wall_s=walls[2:], losses=losses,
+        first_loss_finite=math.isfinite(losses[0]),
+        same_bits=all(r["same_bits"] for r in everyone),
+        peak_gb=[r["peak_bytes"] / 2 ** 30 for r in everyone],
+        device_ms=[r["device_ms"] for r in everyone],
+        collective_ms=[r["collective_ms"] for r in everyone],
+        collective_share=[r["collective_ms"] / r["device_ms"]
+                          if r["device_ms"] else "not measured"
+                          for r in everyone],
+        profiled_wall_s=[r["profiled_wall_s"] for r in everyone],
+        top_kernels_ms={k[:80]: v for k, v in top})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
@@ -318,6 +435,9 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true",
                     help="time launch.serve.generate's decode steps at "
                          "full width, not the rounds")
+    ap.add_argument("--layout", action="store_true",
+                    help="the full-depth layout run, one process a rank "
+                         "under torchrun (the module docstring)")
     ap.add_argument("--arch", default=None,
                     help="the model of --train or --prefill "
                          "(stablelm-1.6b), the models of --decode "
@@ -330,7 +450,11 @@ def main() -> int:
         return 1
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
-    if args.decode:
+    if args.layout:
+        out = layout_times(src)
+        if out is None:
+            return 0
+    elif args.decode:
         out = decode_times(src, args.arch or DECODE_ARCHS)
     elif args.train:
         out = train_times(src, args.arch or "stablelm-1.6b")

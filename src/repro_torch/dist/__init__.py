@@ -1,6 +1,8 @@
-"""Train steps (torch port of ``repro.dist``). ``grad_sync`` is
-ported; ``sharding`` (logical-axis rules lowered to a device mesh) waits for
-the multi-card layout, ROADMAP queue 1 item 4."""
-from repro_torch.dist import grad_sync
+"""Train steps and the multi-card layout (torch port of ``repro.dist``):
+``grad_sync`` (dense and compressed-pod steps) and ``sharding`` (logical
+axis rules, spec trees, their DTensor realisation). Neither is imported
+here: the model modules import ``sharding`` alone, and ``grad_sync``
+imports the FL engine, which must not load the models' dependencies
+first."""
 
-__all__ = ["grad_sync"]
+__all__ = ["grad_sync", "sharding"]

@@ -4,9 +4,10 @@ paper's technique applied to multi-pod data parallelism).
 
 ``make_train_step`` is the plain ``(params, opt_state, batch) -> (params,
 opt_state, metrics)`` step with optional gradient-accumulation
-microbatching. Sharded gradients need the multi-card layout, which is not
-ported (``dist/sharding.py``, ROADMAP queue 1 item 4): a ``grad_shardings``
-argument raises instead of being ignored.
+microbatching and explicit grad shardings: under the multi-card layout
+(``dist.sharding``: params and batch as DTensors) the accumulated
+gradients are redistributed to ``grad_shardings`` before the optimizer
+update, as the reference pins them (FSDP: grads land on the param layout).
 
 ``make_compressed_train_step`` splits the global batch over ``n_pods``
 virtual pods, gives every pod its own gradient, and replaces the dense
@@ -28,6 +29,15 @@ the param's dtype (the dtype JAX gives the cotangent). A pod's gradient
 depends on its own slice alone, so it is the one the vmap gives that pod.
 Leaves are merged one at a time and their pod gradients freed once merged.
 
+Under the layout each pod's gradient is pinned to its param's layout as
+it comes, and each leaf's ``[n_pods, leaf_n]`` pod gradients and EF
+residuals are brought whole (``full_tensor()``) before
+``compress_merge_leaf`` (``sharding.leaf_whole``): the kernels take raw
+pointers, and a pod's Top-K threshold is a selection over the whole leaf
+(GSPMD gathers an opaque custom call's operands the same way). The merged
+update and the new residuals go back to the leaf's layout. Without the
+layout ``leaf_whole`` calls the same merge on the plain tensors.
+
 Error-feedback residuals live in the optimizer state: init with
 ``init_compressed_state(opt, params, n_pods=N)`` and the step threads
 ``{"opt": <inner>, "ef": <[n_pods, ...] f32 residuals>}``; the residuals
@@ -44,6 +54,7 @@ import torch
 
 from repro_torch.core import compression as comp
 from repro_torch.core import strategies as strat_mod
+from repro_torch.dist import sharding as shd
 from repro_torch.fed.engine import compress_merge_leaf
 from repro_torch.tree import tree_from_items, tree_items
 
@@ -57,9 +68,10 @@ def loss_and_grads(loss_fn: Callable, params, batch
     param's dtype; zeros for a leaf the loss does not use)."""
     items = tree_items(params)
     live = [p.detach().requires_grad_(True) for _, p in items]
-    loss, metrics = loss_fn(tree_from_items(
-        zip([k for k, _ in items], live)), batch)
-    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    with shd.layout_context(params):
+        loss, metrics = loss_fn(tree_from_items(
+            zip([k for k, _ in items], live)), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for (_, p), g in zip(items, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -80,16 +92,18 @@ def make_train_step(model, opt, *, n_micro: int = 1,
     """Dense DP train step. ``n_micro`` > 1 runs fwd+bwd over microbatches
     in order (bounded activation memory), accumulating grads in f32 as
     ``acc + g.f32 / n_micro`` and loss and metrics as ``acc + v / n_micro``,
-    the reference's scan. ``grad_shardings`` raises ``NotImplementedError``
-    (the multi-card layout is not ported)."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings needs dist/sharding.py, which waits for the "
-            "multi-card layout (ROADMAP queue 1, item 4: dist/sharding with "
-            "launch/{mesh,specs,dryrun}); one card holds whole gradients")
+    the reference's scan. ``grad_shardings``: a :class:`sharding.P` tree
+    matching params (each stacked leaf realised as ``Model.stacked_dims``
+    says, ``sharding.stack_placements``) or a tree of DTensor placements;
+    DTensor gradients are redistributed to it before the update, plain
+    ones (one device holds all of them) pass as they are."""
     f32 = torch.float32
 
     def step(params, opt_state, batch):
+        with shd.layout_context(params):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         items = tree_items(params)
         if n_micro == 1:
             loss, metrics, grads = loss_and_grads(model.loss_fn, params,
@@ -100,8 +114,7 @@ def make_train_step(model, opt, *, n_micro: int = 1,
                 raise ValueError(
                     f"global batch {b} not divisible by n_micro={n_micro}")
             mb = b // n_micro
-            grads = [torch.zeros(p.shape, dtype=f32, device=p.device)
-                     for _, p in items]
+            grads = [torch.zeros_like(p, dtype=f32) for _, p in items]
             loss, metrics = None, None
             for i in range(n_micro):
                 l, m, g = loss_and_grads(model.loss_fn, params,
@@ -116,6 +129,9 @@ def make_train_step(model, opt, *, n_micro: int = 1,
                                for k, v in m.items()}
                 loss = loss + l / n_micro
                 metrics = {k: a + m[k] / n_micro for k, a in metrics.items()}
+        if grad_shardings is not None:
+            grads = shd.pin(items, grads, grad_shardings,
+                            getattr(model, "stacked_dims", None))
         new_params, new_state = opt.update(
             tree_from_items(zip([k for k, _ in items], grads)), opt_state,
             params)
@@ -128,10 +144,8 @@ def make_train_step(model, opt, *, n_micro: int = 1,
 
 # ------------------------------------------------------ compressed-state init
 def _zero_ef(params, n_pods: int):
-    return tree_from_items(
-        (path, torch.zeros((n_pods,) + tuple(p.shape), dtype=torch.float32,
-                           device=p.device))
-        for path, p in tree_items(params))
+    return tree_from_items((path, shd.zeros_lead(p, n_pods))
+                           for path, p in tree_items(params))
 
 
 def init_compressed_state(opt, params, *, n_pods: int):
@@ -149,20 +163,28 @@ def pod_gradients(loss_fn: Callable, params, batch, n_pods: int
     """Each pod's gradient on its ``[B/n_pods, ...]`` slice of ``batch``,
     one pod at a time: (one ``[n_pods, *leaf]`` buffer per leaf of
     ``tree_items(params)`` in the param's dtype, losses f32 [n_pods],
-    metrics {name: [n_pods]})."""
+    metrics {name: [n_pods]}). Under the layout a leaf's entry is a
+    DTensor, each pod's gradient laid out as its param."""
     items = tree_items(params)
     bp = _batch_size(batch) // n_pods
-    bufs = [torch.empty((n_pods,) + tuple(p.shape), dtype=p.dtype,
-                        device=p.device) for _, p in items]
+    laid_out = shd.is_dtensor(items[0][1])
+    bufs = [[] if laid_out else torch.empty(
+        (n_pods,) + tuple(p.shape), dtype=p.dtype, device=p.device)
+        for _, p in items]
     losses, metrics = [], []
     for i in range(n_pods):
         l, m, g = loss_and_grads(loss_fn, params,
                                  _rows(batch, i * bp, (i + 1) * bp))
-        for buf, gg in zip(bufs, g):
-            buf[i].copy_(gg)
+        for buf, gg, (_, p) in zip(bufs, g, items):
+            if laid_out:
+                buf.append(gg.redistribute(p.device_mesh, p.placements))
+            else:
+                buf[i].copy_(gg)
         del g
-        losses.append(l.to(torch.float32))
-        metrics.append(m)
+        losses.append(shd.full(l).to(torch.float32))
+        metrics.append({k: shd.full(v) for k, v in m.items()})
+    if laid_out:
+        bufs = [torch.stack(b) for b in bufs]
     return (bufs, torch.stack(losses),
             {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]})
 
@@ -204,6 +226,10 @@ def make_compressed_train_step(model, opt, *, n_pods: int,
     kernel_codec = strat.kernel_codec
 
     def step(params, opt_state, batch, pod_crs, pod_coeffs):
+        with shd.layout_context(params):
+            return _step(params, opt_state, batch, pod_crs, pod_coeffs)
+
+    def _step(params, opt_state, batch, pod_crs, pod_coeffs):
         b = _batch_size(batch)
         if b % n_pods:
             raise ValueError(
@@ -222,30 +248,38 @@ def make_compressed_train_step(model, opt, *, n_pods: int,
         pods, losses, metrics = pod_gradients(model.loss_fn, params, batch,
                                               n_pods)
         dev = losses.device
-        crs = torch.clamp(pod_crs.to(device=dev, dtype=torch.float32),
+        crs = torch.clamp(shd.full(pod_crs).to(device=dev,
+                                                dtype=torch.float32),
                           0.0, wire_cr)
-        coeffs = pod_coeffs.to(device=dev, dtype=torch.float32)
+        coeffs = shd.full(pod_coeffs).to(device=dev, dtype=torch.float32)
 
-        items = tree_items(params)
-        agg_items = []
-        for i, ((path, p), (_, e)) in enumerate(zip(items, tree_items(ef))):
-            g, pods[i] = pods[i], None        # freed once merged
-            n = p.numel()
+        def merge(g, e):
+            """One leaf's whole pod gradients [n_pods, *leaf] and residuals
+            -> (its aggregate, its new residuals; None for a dense leaf)."""
+            n = g[0].numel()
             gf = g.reshape(n_pods, n).to(torch.float32)
-            del g
             if n < min_leaf_size:             # dense exchange, no EF
-                agg = torch.tensordot(coeffs, gf, dims=([0], [0]))
-            else:
-                ks = comp.k_for_ratio_traced(n, crs)
-                agg, new_e = compress_merge_leaf(
-                    gf, coeffs, ks, gamma=gamma, overlap_d=overlap_d,
-                    opwa=opwa, use_kernel=use_kernel,
-                    residuals=e.reshape(n_pods, n), value_codec=value_codec,
-                    kernel_codec=kernel_codec)
-                e.copy_(new_e.reshape(e.shape))
-                del new_e
-            del gf
-            agg_items.append((path, agg.reshape(p.shape)))
+                return (torch.tensordot(coeffs, gf, dims=([0], [0]))
+                        .reshape(g.shape[1:]), None)
+            agg, new_e = compress_merge_leaf(
+                gf, coeffs, comp.k_for_ratio_traced(n, crs), gamma=gamma,
+                overlap_d=overlap_d, opwa=opwa, use_kernel=use_kernel,
+                residuals=e.reshape(n_pods, n), value_codec=value_codec,
+                kernel_codec=kernel_codec)
+            return agg.reshape(g.shape[1:]), new_e.reshape(e.shape)
+
+        agg_items = []
+        for i, ((path, p), (_, e)) in enumerate(zip(tree_items(params),
+                                                    tree_items(ef))):
+            g, pods[i] = pods[i], None        # freed once merged
+            # under the layout the leaf is merged whole (sharding.leaf_whole)
+            agg, new_e = shd.leaf_whole(merge, (g, e), (p, e))
+            del g
+            if new_e is not None:
+                if shd.is_dtensor(e):
+                    e, new_e = e.to_local(), new_e.to_local()
+                e.copy_(new_e)
+            agg_items.append((path, agg))
 
         new_params, new_inner = opt.update(tree_from_items(agg_items),
                                            inner, params)

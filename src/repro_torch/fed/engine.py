@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import compression as comp
 from repro_torch.core import opwa as opwa_mod
 from repro_torch.core import strategies as strat_mod
+from repro_torch.dist import sharding as shd
 from repro_torch.tree import tree_from_items, tree_items
 
 #: ("sim_scan" | "pop_scan", strategy, with_overlap) -> simulations built by
@@ -667,8 +668,15 @@ def make_model_local_trainer(loss_fn: Callable, lr: float,
     One client at a time is the reference's wave-composition contract: a
     client's delta depends on its own params, batches and mask alone, so it
     is the delta the reference's vmap gives that client. Returns (deltas,
-    nested like params, of [C, *leaf]; losses f32 [C])."""
+    nested like params, of [C, *leaf]; losses f32 [C]). Under the
+    multi-card layout (DTensor params) each step's gradient is brought to
+    its param's layout before the update, and a leaf's deltas are a
+    DTensor ``[C, *leaf]``, each client's laid out as its param."""
     def local_train(params, batches, step_mask):
+        with shd.layout_context(params):
+            return _local_train(params, batches, step_mask)
+
+    def _local_train(params, batches, step_mask):
         step_mask = torch.as_tensor(step_mask)
         c, n_steps = step_mask.shape
         mask = (step_mask.cpu().numpy().astype(bool) if skip_masked
@@ -679,13 +687,18 @@ def make_model_local_trainer(loss_fn: Callable, lr: float,
                   else step_mask.to(device=dev, dtype=torch.bool))
         steps = {dtype: torch.full((), lr, dtype=dtype, device=dev)
                  for dtype in {p.dtype for _, p in items}}
-        deltas = [torch.empty((c,) + tuple(p.shape), dtype=p.dtype,
-                              device=p.device) for _, p in items]
+        laid_out = shd.is_dtensor(items[0][1])
+        deltas = [[] if laid_out else torch.empty(
+            (c,) + tuple(p.shape), dtype=p.dtype, device=p.device)
+            for _, p in items]
         losses = torch.zeros((c,), dtype=torch.float32, device=dev)
         for ci in range(c):
             if not mask[ci].any():
-                for d in deltas:
-                    d[ci].zero_()
+                for d, (_, p) in zip(deltas, items):
+                    if laid_out:
+                        d.append(torch.zeros_like(p))
+                    else:
+                        d[ci].zero_()
                 continue
             cur = [p.detach().clone() for _, p in items]
             for s in range(n_steps):
@@ -696,8 +709,12 @@ def make_model_local_trainer(loss_fn: Callable, lr: float,
                     tree_from_items(zip([k for k, _ in items], live)),
                     {k: b[ci, s] for k, b in batches.items()})
                 grads = torch.autograd.grad(loss, live, allow_unused=True)
+                if laid_out:
+                    grads = [g if g is None else g.redistribute(
+                        t.device_mesh, t.placements)
+                        for t, g in zip(cur, grads)]
                 with torch.no_grad():
-                    loss = loss.detach().to(torch.float32)
+                    loss = shd.full(loss.detach()).to(torch.float32)
                     if skip_masked:
                         for t, g in zip(cur, grads):
                             if g is not None:      # an unused leaf: g = 0
@@ -713,8 +730,13 @@ def make_model_local_trainer(loss_fn: Callable, lr: float,
                         losses[ci] = torch.where(m, loss, losses[ci])
             with torch.no_grad():
                 for (_, p), t, d in zip(items, cur, deltas):
-                    torch.sub(p, t, out=d[ci])
+                    if laid_out:
+                        d.append(p - t)
+                    else:
+                        torch.sub(p, t, out=d[ci])
             del cur
+        if laid_out:
+            deltas = [torch.stack(d) for d in deltas]
         return (tree_from_items(zip([k for k, _ in items], deltas)),
                 losses)
 

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import compression as comp
 from repro_torch.core import opwa as opwa_mod
 from repro_torch.core import strategies as strat_mod
+from repro_torch.dist import sharding as shd
 from repro_torch.fed.engine import (compress_merge_leaf, densify_rows,
                                     flatten_client_trees,
                                     make_model_local_trainer, make_unflatten,
@@ -78,7 +79,12 @@ def make_round_body(loss_fn: Callable, *, lr_local: float = 1e-2,
     and each leaf's deltas are freed once merged, so a round holds the C
     deltas, one leaf's f32 view and the merge's outputs. The loss is the
     active-masked mean of each client's last real local step's pre-update
-    loss."""
+    loss. Under the multi-card layout (DTensor params: the ``fl_round``
+    cell of ``launch.specs``) each leaf's C deltas are brought whole to
+    every rank before its merge (the kernels take raw pointers, and a
+    client's Top-K is a selection over the whole leaf;
+    ``sharding.leaf_whole``), and the update goes back to the param's
+    layout."""
     strat = strat_mod.get(strategy)   # config-time error, names listed
     ef = strat.needs_residuals
     compress = strat.compresses
@@ -102,6 +108,11 @@ def make_round_body(loss_fn: Callable, *, lr_local: float = 1e-2,
             value_codec=value_codec, kernel_codec=kernel_codec)
 
     def body(params, residuals, batches, step_mask, coeffs, crs, active):
+        with shd.layout_context(params):
+            return _body(params, residuals, batches, step_mask,
+                         shd.full(coeffs), shd.full(crs), active)
+
+    def _body(params, residuals, batches, step_mask, coeffs, crs, active):
         if ef and residuals is None:
             raise ValueError(f"{strategy} needs per-leaf residuals")
         deltas, losses = local_train(params, batches, step_mask)
@@ -119,7 +130,10 @@ def make_round_body(loss_fn: Callable, *, lr_local: float = 1e-2,
         new_p, new_r = [], []
         for i, (path, p) in enumerate(p_items):
             dl, d_items[i] = d_items[i], None   # freed once merged
-            agg, res = merge_leaf(dl, r_items[i], w, crs, active)
+            # under the layout the leaf is merged whole (sharding.leaf_whole)
+            agg, res = shd.leaf_whole(
+                lambda d, r: merge_leaf(d, r, w, crs, active),
+                (dl, r_items[i]), (p, r_items[i]))
             del dl
             upd = (p.to(torch.float32) - eta * agg).to(p.dtype)
             del agg

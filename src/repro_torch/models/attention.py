@@ -4,17 +4,23 @@ KV cache.
 
 Port of ``repro.models.attention`` (self- and cross-attention). The
 layouts are the reference's: activations ``[B, S, H, D]``, caches ``[B, S,
-Hkv, D]``, and query head ``i`` reads kv head ``i // (H / Hkv)``. The port
-runs on one card, so the reference's sharding constraints have no
-counterpart here.
+Hkv, D]``, and query head ``i`` reads kv head ``i // (H / Hkv)``. Under
+sharding rules ``self_attention`` pins q's heads to the model axis, as the
+reference does (``dist.sharding.constrain``; the identity without rules).
+On DTensors (the multi-card layout) ``attend`` runs on each rank's shard
+of the batch and the heads (``_attend_sharded``): attention is independent
+across both, and its einsums flatten two sharded dims, which DTensor
+cannot do without a gather.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import constrain, is_dtensor
 from repro_torch.models.layers import apply_rope, dense_init, mm
 
 NEG_INF = -1e9
@@ -48,11 +54,13 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 def qkv_proj(p, x: torch.Tensor, n_heads: int, n_kv_heads: int,
              head_dim: int):
-    """x: [B, S, d] -> q [B,S,H,D], k/v [B,S,Hkv,D]."""
+    """x: [B, S, d] -> q [B,S,H,D], k/v [B,S,Hkv,D]. Under rules each
+    projection is laid out with its heads over the model axis before its
+    bias is added (a projection whose contraction is sharded is a partial
+    sum, which DTensor cannot add to a sharded bias)."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q, k, v = (constrain(x @ p[w], ("batch", None, "heads"))
+               for w in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(b, s, n_heads, head_dim),
@@ -96,6 +104,9 @@ def attend(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     q: [B,Sq,H,D]; k,v: [B,Sk,Hkv,D]. Chunks of ``chunk`` queries (256 when
     Sk >= 16384); Sq is zero-padded to a chunk multiple and sliced back.
     """
+    if is_dtensor(q):
+        return _attend_sharded(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, chunk=chunk)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if sk >= 16384:  # long-context prefill: smaller q-chunks bound the
@@ -121,6 +132,30 @@ def attend(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return out[:, :sq] if pad else out
 
 
+def _attend_sharded(q, k, v, **kw):
+    """``attend`` on DTensors: q, k and v laid out ``("batch", None,
+    "heads", None)`` (the heads replicated instead when the model axis
+    does not divide both H and Hkv, so that each rank keeps whole query
+    groups), then ``attend`` on every rank's own shard (``local_map``),
+    the output laid out as q."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    spec = ("batch", None, "heads", None)
+    q, k, v = (constrain(t, spec) for t in (q, k, v))
+    mesh = q.device_mesh
+    plc = list(q.placements)
+    for i, pl in enumerate(plc):
+        n = mesh.size(i)
+        if pl.is_shard(2) and (q.shape[2] % n or k.shape[2] % n):
+            plc[i] = Replicate()
+    plc = tuple(plc)
+    q, k, v = (t.redistribute(mesh, plc) for t in (q, k, v))
+    one = list(plc)             # one tensor's placements (a list)
+    fn = local_map(functools.partial(attend, **kw), out_placements=one,
+                   in_placements=(one, one, one), device_mesh=mesh)
+    return fn(q, k, v)
+
+
 def decode_attend(q, k_cache, v_cache, pos, *, window: Optional[int] = None):
     """Single-token decode. q: [B,H,D]; caches [B,S,Hkv,D]; pos: scalar int.
     Scores, softmax and the weighted sum in f32."""
@@ -144,9 +179,11 @@ def decode_attend(q, k_cache, v_cache, pos, *, window: Optional[int] = None):
 # ---------------------------------------------------------------- module-level
 def self_attention(p, x, *, cfg, positions, causal=True, window=None,
                    rope=True, chunk=512):
-    """Pre-projected full self-attention for prefill. x: [B,S,d]."""
+    """Pre-projected full self-attention for prefill. x: [B,S,d]. Under
+    rules q is head-sharded over the model axis (``constrain``)."""
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = qkv_proj(p, x, h, hkv, hd)
+    q = constrain(q, ("batch", None, "heads", None))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

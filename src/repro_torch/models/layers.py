@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, get_rules, whole_dim
+
 
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
@@ -33,8 +35,9 @@ def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm computed in f32, cast back to ``x``'s dtype."""
-    xf = x.float()
+    """RMS norm computed in f32, cast back to ``x``'s dtype (on a DTensor
+    sharded on the normed dim, that dim gathered first: ``whole_dim``)."""
+    xf = whole_dim(x).float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
@@ -42,8 +45,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """Layer norm computed in f32, cast back to ``x``'s dtype."""
-    xf = x.float()
+    """Layer norm computed in f32, cast back to ``x``'s dtype (the normed
+    dim gathered first on a DTensor, as ``rms_norm``)."""
+    xf = whole_dim(x).float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
@@ -117,8 +121,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------------------------ embedding
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup (the reference's single-device ``take``)."""
-    return table[tokens]
+    """Token embedding lookup: the reference's single-device ``take``, and
+    under sharding rules its one-hot contraction (``embed_onehot``), which
+    a sharded table contracts shard by shard."""
+    if get_rules() is None:
+        return table[tokens]
+    return embed_onehot(table, tokens)
 
 
 def embed_onehot(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -127,10 +135,14 @@ def embed_onehot(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     same rows as ``embed_lookup`` (one nonzero term a sum), but its
     backward is a matmul, which the card runs in the same order every run.
     The gather's backward accumulates repeated tokens with atomics on CUDA,
-    in an order that may change from run to run. Training uses this one."""
+    in an order that may change from run to run. Training uses this one.
+    Under rules the one-hot's vocab dim is laid out as the table's
+    (``constrain``), so the contraction stays shard-local."""
     vocab = torch.arange(table.shape[0], device=tokens.device,
                          dtype=tokens.dtype)
     onehot = (tokens[..., None] == vocab).to(table.dtype)
+    onehot = constrain(onehot, ("batch",) + (None,) * (onehot.dim() - 2)
+                       + ("vocab",))
     return onehot @ table
 
 
@@ -139,9 +151,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   vocab_logical: int) -> torch.Tensor:
     """Mean next-token CE over vocab-padded logits: f32 logits, padded
     columns masked to -1e9 before the logsumexp, the label logit picked by
-    an iota compare, as the reference computes it."""
+    an iota compare, as the reference computes it. On a DTensor the vocab
+    dim is gathered first (``whole_dim``): the logsumexp and the label
+    pick reduce over it."""
     v_pad = logits.shape[-1]
-    lf = logits.to(torch.float32)
+    lf = whole_dim(logits).to(torch.float32)
     cols = torch.arange(v_pad, device=logits.device)
     if v_pad != vocab_logical:
         lf = torch.where(cols < vocab_logical, lf, -1e9)

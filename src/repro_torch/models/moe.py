@@ -15,12 +15,12 @@ backward can be captured in a CUDA graph), and the shared experts are a
 plain dense branch. The aux load-balancing term is Switch / GShard's, ``E *
 sum(mean(probs) * mean(one_hot(top-1)))``.
 
-The reference routes per data shard (``n_shards`` from the installed
-sharding rules, capacity counted per shard) and constrains layouts; without
-rules it routes over one shard and every ``constrain`` is the identity.
-The port has no layout yet (ROADMAP queue 1, item 4, brings shards back
-with it), so ``apply_moe`` routes over one shard, as the reference does on
-one device.
+Under sharding rules the tokens route per data shard, as the reference's
+do: ``n_shards`` is the rules' batch size (1 when ``T`` does not divide
+into shards of at least ``top_k`` tokens), capacity is counted per shard
+and each shard dispatches into its own ``[E, C, d]`` buffer, the buffers
+and the expert outputs laid out ``("batch", "experts", ...)``
+(``dist.sharding.constrain``). Without rules there is one shard.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, get_rules
 from repro_torch.models.layers import dense_init
 
 
@@ -131,27 +132,61 @@ def dropped_tokens(p, x: torch.Tensor, mo) -> int:
     return int((~keep).sum())
 
 
+def n_shards(mo, n_tokens: int) -> int:
+    """Shards ``apply_moe`` routes ``n_tokens`` in: the installed rules'
+    batch size, or 1 without rules, without a sharded batch, or when the
+    tokens do not split into shards of at least ``top_k``."""
+    rules = get_rules()
+    if rules is None or not rules.shard_batch:
+        return 1
+    n = rules.batch_size()
+    if n_tokens % n or n_tokens // n < mo.top_k:
+        return 1
+    return n
+
+
 def apply_moe(p, x: torch.Tensor, *, mo, act: str = "swiglu"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], aux f32 scalar), routed over one
-    shard (the module docstring). The expert products emit x's dtype, as
-    the reference's ``preferred_element_type=x.dtype`` does for bf16;
-    each token's k expert outputs are read back from its slots (a dropped
-    one from its expert's last slot, times a gate of 0) and summed
-    weighted by the gates."""
+    """x: [B, S, d] -> (out [B, S, d], aux f32 scalar: the shards' mean),
+    routed per shard (the module docstring). The expert products emit x's
+    dtype, as the reference's ``preferred_element_type=x.dtype`` does for
+    bf16; each token's k expert outputs are read back from its shard's
+    slots (a dropped one from its expert's last slot, times a gate of 0)
+    and summed weighted by the gates."""
     b, s, d = x.shape
     t = b * s
-    cap = capacity(mo, t)
-    disp, combine, ei, pi, _, aux = _local_moe(p, x.reshape(t, d), mo, cap)
+    ns = n_shards(mo, t)
+    tl = t // ns
+    cap = capacity(mo, tl)
+    xt = constrain(x.reshape(ns, tl, d), ("batch", None, None))
+    shards = [_local_moe(p, xt[i], mo, cap) for i in range(ns)]
+    e, k = mo.n_experts, mo.top_k
+    if ns == 1:
+        disp = shards[0][0]                              # [E, C, d]
+    else:
+        disp = constrain(torch.stack([sh[0] for sh in shards]),
+                         ("batch", "experts", None, None))
+        disp = disp.transpose(0, 1).reshape(e, ns * cap, d)
     up = torch.bmm(disp, p["w_up"])
     if act == "swiglu":
         h = F.silu(torch.bmm(disp, p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    y = torch.bmm(h, p["w_down"])                       # [E, C, d]
-    yk = y.reshape(-1, d).index_select(0, (ei * cap + pi).reshape(-1))
-    out = torch.bmm(combine[:, None, :], yk.view(t, mo.top_k, d))
-    out = out.view(b, s, d)
+    y = torch.bmm(h, p["w_down"])                   # [E, ns * C, d]
+    outs = []
+    if ns > 1:
+        y = constrain(y.view(e, ns, cap, d).transpose(0, 1),
+                      ("batch", "experts", None, None))
+    for i, (_, combine, ei, pi, _, _) in enumerate(shards):
+        ys = y if ns == 1 else y[i]
+        yk = ys.reshape(-1, d).index_select(0, (ei * cap + pi).reshape(-1))
+        outs.append(torch.bmm(combine[:, None, :], yk.view(tl, k, d)))
+    if ns == 1:
+        out, aux = outs[0].view(b, s, d), shards[0][5]
+    else:
+        out = constrain(torch.stack(outs).view(ns, tl, d),
+                        ("batch", None, None)).reshape(b, s, d)
+        aux = torch.mean(torch.stack([sh[5] for sh in shards]))
     if "shared" in p:
         sh = p["shared"]
         xt = x.reshape(t, d)

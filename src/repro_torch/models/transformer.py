@@ -34,6 +34,16 @@ As in the reference, nothing fills the cross caches: ``init_cache`` gives
 zeros and ``prefill`` returns no cache, so serving decodes without the
 audio or the image (ROADMAP §3, R5).
 
+Under sharding rules (``dist.sharding``) the model pins layouts where the
+reference does: the embedded tokens and the final hidden states
+``("batch", "seq", "embed")``, each block's output ``("batch", None,
+"act_d")``, the logits ``("batch", "seq", "vocab")`` (decode: ``("batch",
+"vocab")``); embedding lookups become the one-hot contraction. Without
+rules every ``constrain`` is the identity. ``init(seed, placer=)`` draws
+the same stream and keeps only this rank's share of each leaf, one layer
+at a time (``sharding.Placer``); ``abstract_params`` gives the tree's
+shapes and dtypes as meta tensors, with no allocation.
+
 A sliding ``window`` (with its ``global_layers``) is honoured per layer, as
 in the reference. A family the port does not run raises
 ``NotImplementedError`` when the model is built.
@@ -49,12 +59,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (constrain, gather_batch_axes,
+                                      get_rules)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, mla, moe, rwkv6
 from repro_torch.models.layers import (_dtype, apply_mlp, cross_entropy,
                                        dense_init, embed_init, embed_lookup,
                                        embed_onehot, init_mlp, layer_norm,
                                        pad_vocab, rms_norm)
+from repro_torch.tree import tree_from_items, tree_items
 
 Params = Dict[str, Any]
 
@@ -77,7 +90,12 @@ def _remat(fn, mode: str):
     so ``torch.autograd.grad`` works through it; no RNG state (nothing
     draws randomness, and saving it would read the generator inside a CUDA
     graph capture). A recompute runs the same ops on the same inputs, so
-    the three modes give the same bits."""
+    the three modes give the same bits. Under sharding rules the block's
+    params are gathered over the batch axes first, inside the checkpointed
+    region (``gather_batch_axes``: FSDP's per-layer gather, redone in the
+    recompute)."""
+    if get_rules() is not None:
+        fn = _gathered(fn)
     if mode == "none":
         return fn
     kw = dict(use_reentrant=False, preserve_rng_state=False)
@@ -85,6 +103,14 @@ def _remat(fn, mode: str):
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_mm)
     return functools.partial(checkpoint, fn, **kw)
+
+
+def _gathered(fn):
+    """``fn(p, ...)`` with ``p`` gathered over the batch axes first."""
+    @functools.wraps(fn)
+    def run(p, *args, **kw):
+        return fn(gather_batch_axes(p), *args, **kw)
+    return run
 
 
 def layer_params(tree, i: int):
@@ -164,14 +190,59 @@ class Model:
         self.dtype = _dtype(cfg.dtype)
         self.v_pad = pad_vocab(cfg.vocab_size, 256)
         self.device = resolve_device(device)
+        self._placer = None
 
     # =================================================================== init
-    def init(self, seed: Union[int, torch.Generator]) -> Params:
+    def init(self, seed: Union[int, torch.Generator], placer=None) -> Params:
         """Random params drawn from ``seed`` (an int, or a generator on the
-        model's device)."""
+        model's device). With a ``sharding.Placer`` the same stream is
+        drawn, but each stacked layer is cut to this rank's share as soon
+        as it is drawn, and the tree comes back as DTensors."""
         gen = seed
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._placer = placer
+        try:
+            p = self._init_tree(gen)
+        finally:
+            self._placer = None
+        return p if placer is None else placer.finish(p)
+
+    def abstract_params(self) -> Params:
+        """The params tree's shapes and dtypes as meta tensors, with no
+        allocation (``jax.eval_shape(model.init, key)``): ``init`` run on
+        fake tensors."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        model = Model(self.cfg, device="cpu")
+        with FakeTensorMode():
+            fake = model.init(0)
+        return tree_from_items(
+            (path, torch.empty(x.shape, dtype=x.dtype, device="meta"))
+            for path, x in tree_items(fake))
+
+    def abstract_cache(self, batch: int, seq: int,
+                       dtype=torch.bfloat16) -> Params:
+        """``init_cache``'s tree as meta tensors, with no allocation."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        model = Model(self.cfg, device="cpu")
+        with FakeTensorMode():
+            fake = model.init_cache(batch, seq, dtype)
+        return tree_from_items(
+            (path, torch.empty(x.shape, dtype=x.dtype, device="meta"))
+            for path, x in tree_items(fake))
+
+    @staticmethod
+    def stacked_dims(path) -> int:
+        """How many leading dims of the leaf at ``path`` stack layers."""
+        path = tuple(path)
+        if path[:2] == ("groups", "self"):
+            return 2
+        if path[:1] in (("layers",), ("dense_layers",), ("moe_layers",)) \
+                or path[:2] in (("encoder", "layers"), ("groups", "cross")):
+            return 1
+        return 0
+
+    def _init_tree(self, gen) -> Params:
         cfg = self.cfg
         d = cfg.d_model
         p = {
@@ -185,33 +256,38 @@ class Model:
             # read by nothing; kept so that trees and checkpoints match
             p["final_norm_b"] = self._zeros()
             p["layers"] = self._init_stack(gen, cfg.n_layers,
-                                           self._init_rwkv_block)
+                                           self._init_rwkv_block,
+                                           ("layers",))
         elif cfg.family == "encdec":
             p["encoder"] = {
                 "layers": self._init_stack(gen, cfg.encdec.n_enc_layers,
-                                           self._init_dense_block),
+                                           self._init_dense_block,
+                                           ("encoder", "layers")),
                 "final_norm": self._ones(),
             }
             p["layers"] = self._init_stack(gen, cfg.n_layers,
-                                           self._init_encdec_block)
+                                           self._init_encdec_block,
+                                           ("layers",))
         elif cfg.family == "vlm":
             v = cfg.vision
             g, per = self._groups()
             p["vis_proj"] = dense_init(gen, v.d_vision, (v.d_vision, d),
                                        self.dtype)
             p["groups"] = {
-                "self": _stack([self._init_stack(gen, per,
-                                                 self._init_dense_block)
-                                for _ in range(g)]),
-                "cross": self._init_stack(gen, g, self._init_cross_block),
+                "self": self._init_stack(gen, (g, per),
+                                         self._init_dense_block,
+                                         ("groups", "self")),
+                "cross": self._init_stack(gen, g, self._init_cross_block,
+                                          ("groups", "cross")),
             }
         elif cfg.family == "moe":
             nd = cfg.moe.first_dense_layers
             if nd:
-                p["dense_layers"] = self._init_stack(gen, nd,
-                                                     self._init_dense_block)
+                p["dense_layers"] = self._init_stack(
+                    gen, nd, self._init_dense_block, ("dense_layers",))
             p["moe_layers"] = self._init_stack(gen, cfg.n_layers - nd,
-                                               self._init_moe_block)
+                                               self._init_moe_block,
+                                               ("moe_layers",))
             if cfg.mtp_depth:
                 p["mtp"] = {
                     "proj": dense_init(gen, 2 * d, (2 * d, d), self.dtype),
@@ -219,7 +295,7 @@ class Model:
                     "block": self._init_dense_block(gen)}
         else:  # dense / hybrid
             p["layers"] = self._init_stack(gen, cfg.n_layers,
-                                           self._init_block)
+                                           self._init_block, ("layers",))
         return p
 
     def _ones(self):
@@ -235,8 +311,20 @@ class Model:
         g = self.cfg.vision.n_cross_layers
         return g, self.cfg.n_layers // g
 
-    def _init_stack(self, gen, n, init_one):
-        return _stack([init_one(gen) for _ in range(n)])
+    def _init_stack(self, gen, n, init_one, path):
+        """``n`` (an int, or vlm's ``(groups, per)``) layers drawn in order
+        and stacked; with a placer, each layer is cut to this rank's share
+        of the stack at ``path`` as it is drawn."""
+        counts = (n,) if isinstance(n, int) else tuple(n)
+        if self._placer is not None:
+            return self._placer.stack(path, counts, lambda: init_one(gen))
+
+        def build(c):
+            if len(c) == 1:
+                return _stack([init_one(gen) for _ in range(c[0])])
+            return _stack([build(c[1:]) for _ in range(c[0])])
+
+        return build(counts)
 
     def _init_attn(self, gen):
         """Self-attention's params: MLA's when ``cfg.mla`` is set."""
@@ -340,8 +428,9 @@ class Model:
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if "moe" in p:
             out, aux = moe.apply_moe(p["moe"], h2, mo=cfg.moe, act=cfg.act)
-            return x + out, aux
-        return x + apply_mlp(p["mlp"], h2, cfg.act), 0.0
+            return constrain(x + out, ("batch", None, "act_d")), aux
+        return constrain(x + apply_mlp(p["mlp"], h2, cfg.act),
+                         ("batch", None, "act_d")), 0.0
 
     def _rwkv_block_fwd(self, p, x):
         cfg = self.cfg
@@ -382,6 +471,19 @@ class Model:
                                     rope=False)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         return x + apply_mlp(p["mlp"], h, cfg.act)
+
+    @staticmethod
+    def _gather_top(params):
+        """``params`` with its unstacked leaves (embedding, head, norms,
+        vlm's projection, the MTP head's projections) gathered over the
+        batch axes; the stacks stay as they are (their blocks gather a
+        layer at a time)."""
+        if get_rules() is None:
+            return params
+        stacks = ("layers", "dense_layers", "moe_layers", "encoder",
+                  "groups")
+        return {k: v if k in stacks else gather_batch_axes(v)
+                for k, v in params.items()}
 
     def _remat_mode(self) -> str:
         return self.cfg.remat if torch.is_grad_enabled() else "none"
@@ -496,11 +598,15 @@ class Model:
         that into zeros, the reference's)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
-        x, aux = self._hidden(params, batch,
-                              embed_onehot(params["embed"]["w"], tokens))
+        params = self._gather_top(params)
+        x = constrain(embed_onehot(params["embed"]["w"], tokens),
+                      ("batch", "seq", "embed"))
+        x, aux = self._hidden(params, batch, x)
+        x = constrain(x, ("batch", "seq", "embed"))
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        ce = cross_entropy(h @ params["lm_head"]["w"], labels,
-                           cfg.vocab_size)
+        logits = constrain(h @ params["lm_head"]["w"],
+                           ("batch", "seq", "vocab"))
+        ce = cross_entropy(logits, labels, cfg.vocab_size)
         loss, metrics = ce, {"ce": ce}
         if cfg.moe is not None:
             loss = loss + cfg.moe.aux_loss_weight * aux
@@ -524,7 +630,8 @@ class Model:
                           rms_norm(emb_next, mp["norm_e"], cfg.norm_eps)],
                          dim=-1)
         positions = torch.arange(h_in.shape[1], device=h.device)
-        x, _ = self._block_fwd(mp["block"], h_in @ mp["proj"], positions)
+        x, _ = self._block_fwd(gather_batch_axes(mp["block"]),
+                               h_in @ mp["proj"], positions)
         logits = rms_norm(x, params["final_norm"],
                           cfg.norm_eps) @ params["lm_head"]["w"]
         return cross_entropy(logits[:, :-1], labels[:, 2:], cfg.vocab_size)
@@ -569,8 +676,10 @@ class Model:
     def decode_step(self, params, cache, tokens, pos
                     ) -> Tuple[torch.Tensor, Params]:
         """One-token decode. tokens: [B] int; pos: int. Returns the logits
-        [B, v_pad] and the cache (written in place)."""
+        [B, v_pad] and the cache (written in place). Under sharding rules
+        every weight is gathered over the batch axes first."""
         cfg = self.cfg
+        params = gather_batch_axes(params)
         x = embed_lookup(params["embed"]["w"], tokens)       # [B, d]
         if cfg.family == "ssm":
             x = layer_norm(x, params["ln0_s"], params["ln0_b"], cfg.norm_eps)
@@ -588,7 +697,8 @@ class Model:
         else:
             x, cache = self._decode_dense(params, cache, x, pos)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return h @ params["lm_head"]["w"], cache
+        logits = constrain(h @ params["lm_head"]["w"], ("batch", "vocab"))
+        return logits, cache
 
     def _decode_block(self, p, x, kc, vc, pos, window, ssm_cache=None):
         cfg = self.cfg
@@ -721,7 +831,9 @@ class Model:
         multiple of their GLA chunk (the reference asserts it; nothing is
         padded)."""
         cfg = self.cfg
-        x, _ = self._hidden(params, batch, embed_lookup(
-            params["embed"]["w"], batch["tokens"]))
+        params = self._gather_top(params)
+        x = constrain(embed_lookup(params["embed"]["w"], batch["tokens"]),
+                      ("batch", "seq", "embed"))
+        x, _ = self._hidden(params, batch, x)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return h[:, -1, :] @ params["lm_head"]["w"], None

@@ -12,7 +12,8 @@ scalar here becomes a 0-d tensor of that dtype first (``lr`` rounded to bf16
 for a bf16 param; ``1 - b1`` computed as a Python double, then rounded to
 f32). Those constants are made on the device once and cached, so an update
 copies nothing from the host. Updates are out of place: the inputs are left
-as they were.
+as they were. State leaves are made ``zeros_like`` their params, so under
+the multi-card layout (DTensor params) they take the params' layout.
 """
 from __future__ import annotations
 
@@ -65,8 +66,7 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
     f32 = torch.float32
 
     def init(params):
-        return _map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                          device=p.device), params)
+        return _map(lambda p: torch.zeros_like(p, dtype=f32), params)
 
     def update(grads, state, params):
         new_m = _map(lambda m, g: _scalar(beta, m) * m + g.to(f32),
@@ -83,7 +83,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     f32 = torch.float32
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=f32, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=f32)
         dev = tree_leaves(params)[0].device
         return {"m": _map(zeros, params), "v": _map(zeros, params),
                 "t": torch.zeros((), dtype=torch.int32, device=dev)}

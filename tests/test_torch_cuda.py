@@ -653,3 +653,63 @@ def test_compressed_train_step_kernel_route(card, n_pods):
     for (_, a), (_, b) in zip(tree_items(out["auto"]),
                               tree_items(out[False])):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture
+def card_group(card):
+    """A one-rank NCCL process group on the card (what one card allows of
+    the multi-card layout); destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+def test_place_then_full_tensor_on_the_card(card_group):
+    """``sharding.place`` lays a bf16 and an f32 leaf out on a (1, 1)
+    CUDA mesh, stacked leaves realised by ``stack_placements``;
+    ``full_tensor()`` gives the source's bits back on the card."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_t
+    dm = mesh_t.device_mesh(mesh_t.make_mesh_from_spec(
+        (1, 1), ("data", "model")), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(4, 64, 96, generator=g, device="cuda").to(
+                torch.bfloat16),
+            "b": torch.randn(96, generator=g, device="cuda")}
+    specs = {"w": shd.P("data", None, "model"), "b": shd.P()}
+    placed = shd.place(tree, specs, dm, n_stack=lambda p: 1 if p == ("w",)
+                       else 0)
+    assert placed["w"].device.type == "cuda"
+    for k in tree:
+        assert shd.is_dtensor(placed[k])
+        assert torch.equal(placed[k].full_tensor(), tree[k])
+
+
+def test_constrain_redistributes_a_cuda_dtensor(card_group):
+    """Under rules on a realised CUDA mesh ``constrain`` returns the
+    DTensor laid out as its spec (the same values); a plain tensor comes
+    back itself."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import mesh as mesh_t
+    dm = mesh_t.device_mesh(mesh_t.make_mesh_from_spec(
+        (1, 1), ("data", "model")), "cuda")
+    x = torch.randn(2, 8, 16, device="cuda")
+    d = distribute_tensor(x, dm, [Replicate(), Replicate()])
+    rules = shd.make_rules(get_config("qwen2.5-32b"), SHAPES["train_4k"], dm)
+    with shd.use_rules(rules):
+        y = shd.constrain(d, ("batch", None, "act_d"))
+        assert y.placements == (Shard(0), Shard(2))
+        assert torch.equal(y.full_tensor(), x)
+        assert shd.constrain(x, ("batch", None, "act_d")) is x

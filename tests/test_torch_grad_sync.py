@@ -25,7 +25,9 @@ What is held, and how closely (U = 2^-24):
     ``lr*gamma*(2*C*U*sum_c|w_c g_c| + sum_c w_c*tol) + 2U*max|p|`` and
     ``tol`` (plus one quantization level, ``absmax/127``, under qtopk's int8
     codec); the loss within ``1e-5`` relative;
-  * the bare and wrapped state structures, and every error message.
+  * the bare and wrapped state structures, and every error message;
+  * ``grad_shardings`` (a spec tree) on one process: the dense step's
+    values bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -43,7 +45,10 @@ from repro_torch import convert
 from repro_torch.configs import get_config as get_config_t
 from repro_torch.core import bcrs as bcrs_t
 from repro_torch.core import compression as comp_t
+from repro_torch.configs import SHAPES as SHAPES_T
 from repro_torch.dist import grad_sync as gs_t
+from repro_torch.dist import sharding as shd_t
+from repro_torch.launch import mesh as mesh_t
 from repro_torch.models import Model as ModelT
 from repro_torch.optim import make_optimizer as make_opt_t
 from repro_torch.tree import tree_items
@@ -161,10 +166,25 @@ class TestTrainStep:
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
     def test_grad_shardings_raise(self, setup):
-        _, _, mt, _, _ = setup
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            gs_t.make_train_step(mt, make_opt_t("sgd", 0.1),
-                                 grad_shardings={"embed": None})
+        """``grad_shardings`` no longer raises: a spec tree (the params'
+        ``param_specs`` on the production mesh; every reduced leaf is under
+        ``2**16`` elements, so each is ``P()``) pins DTensor gradients and
+        passes plain ones as they are, so a one-process step gives the
+        dense step's values bit for bit."""
+        cfg, _, mt, params_np, batch_np = setup
+        opt = make_opt_t("sgd", 0.1)
+        with shd_t.use_rules(shd_t.make_rules(
+                cfg, SHAPES_T["train_4k"], mesh_t.make_production_mesh())):
+            specs = shd_t.param_specs(cfg, mt.abstract_params())
+        assert len(shd_t.tree_items_p(specs)) == len(tree_items(
+            _pt(params_np)))
+        p1, _, m1 = gs_t.make_train_step(mt, opt)(
+            _pt(params_np), (), _bt(batch_np))
+        p2, _, m2 = gs_t.make_train_step(mt, opt, grad_shardings=specs)(
+            _pt(params_np), (), _bt(batch_np))
+        assert float(m2["loss"]) == float(m1["loss"])
+        for a, b in zip(_leaves_t(p1), _leaves_t(p2)):
+            np.testing.assert_array_equal(a, b)
 
     def test_batch_not_divisible_by_n_micro_raises(self, setup):
         _, _, mt, params_np, batch_np = setup

@@ -373,6 +373,7 @@ MODEL_CASES = {
     "stablelm-1.6b": {},
     "yi-9b": {},
     "qwen2.5-14b": {},
+    "qwen2.5-32b": {},
     # the dense family's sliding window with a global layer (the reference
     # honours cfg.window per layer; no shipped dense config sets it)
     "stablelm-1.6b-window": {"window": 3, "global_layers": (1,)},
