@@ -113,19 +113,23 @@
    ``reduced()`` size (dense adamw, compressed) equal to uninterrupted
    runs bit for bit;
 9. the serve phase (stablelm-1.6b at full width, bf16, random weights from
-   a seed): the present ``flash_attention`` kernel against its twin
-   (within the summation-order bound, plus one bf16 ULP in bf16, and bf16
-   equal to the f32 kernel on the upcasts, rounded) and the bf16 wgmma
-   kernel against its twin and that twin against the f32 twin (within
-   ``wgmma_twin_and_bound``, plus one bf16 ULP; the check must reject a
-   planted fault, one key tile skipped) at the serve shape [4, 2048, 32, 64]
-   (bf16 and f32), yi-9b's heads (D = 128, kv broadcast from 4 heads), a
-   ragged S = 1000 and Sq 700 x Sk 1000, Sq 128 x Sk 384, a non-causal case
-   and one 32k sequence of ``prefill_32k``, timed beside their twins and
-   ``F.scaled_dot_product_attention``; ``ops.flash_attention`` on layer 0's
-   own q, k, v of a 2048-token prompt against ``attention.attend`` (bf16
-   through the wgmma kernel, f32 through the present one, launches
-   counted); and ``launch.serve.generate``: a 128-token prompt stepped
+   a seed): the f32 ``flash_attention`` kernel against its twin (within
+   ``f32_twin_bound``, plus one bf16 ULP in bf16, and bf16 equal to the
+   f32 kernel on the upcasts, rounded; in f32 at the serve shape and 32k
+   the check must reject a planted fault, one key tile skipped) and the
+   bf16 wgmma kernel against its twin and that twin against the f32 twin
+   (within ``wgmma_twin_and_bound``, plus one bf16 ULP; the same planted
+   fault) at the serve shape [4, 2048, 32, 64] (bf16 and f32), yi-9b's
+   heads (D = 128, kv broadcast from 4 heads; bf16 and f32), a ragged S =
+   1000 and Sq 700 x Sk 1000, Sq 128 x Sk 384, a non-causal case, one 32k
+   sequence of ``prefill_32k`` (bf16 and f32) and bf16 at D 32 (a head dim
+   the wgmma route refuses); the f32 route timed at f32 serve, D 128 and
+   32k and bf16 D 32, the wgmma route at its bf16 cases, each beside its
+   twin and ``F.scaled_dot_product_attention`` at the same dtype; the f32
+   kernel's registers and spills from its build log;
+   ``ops.flash_attention`` on layer 0's own q, k, v of a 2048-token prompt
+   against ``attention.attend`` (bf16 through the wgmma kernel, f32
+   through the f32 route, launches counted); and ``launch.serve.generate``: a 128-token prompt stepped
    through ``decode_step`` at B = 4, 32 greedy tokens, and
    ``Model.prefill`` over the same prompt against the decode logits;
 10. the recurrent serve phase (hymba-1.5b and rwkv6-1.6b at full width,
@@ -3267,8 +3271,38 @@ FLASH_CASES = (
     ("non-causal", 1, 256, 256, 2, 2, 64, torch.bfloat16, False),
     ("non-causal", 1, 256, 256, 2, 2, 64, torch.float32, False),
     ("32k", 1, None, None, 32, 32, 64, torch.bfloat16, True),
+    # the shapes the f32 route takes: f32 at D 128 and at 32k, and bf16 at
+    # a head dim the wgmma route refuses (D 32, d_model 2048)
+    ("yi-9b heads", 1, 2048, 2048, 32, 4, 128, torch.float32, True),
+    ("32k", 1, None, None, 32, 32, 64, torch.float32, True),
+    ("D 32", 4, 2048, 2048, 64, 64, 32, torch.bfloat16, True),
 )
+#: the cases the f32 route is timed at (label, dtype)
+FLASH_TIMED = {("serve", torch.float32), ("32k", torch.float32),
+               ("yi-9b heads", torch.float32), ("D 32", torch.bfloat16)}
 BLK = 128                     # ops.flash_attention's default blocks
+
+
+def ptxas_report(lib_path):
+    """Registers and spills of each kernel in a library's build log (the
+    compiler's ``-Xptxas -v`` report kept beside it): one line a kernel,
+    its template arguments shortened to (dtype, D, causal)."""
+    import re
+    out, name, spill = [], None, ""
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb(\d)",
+                          m.group(1))
+            name = (f"{'bf16' if t.group(1) != 'f' else 'f32'} D {t.group(2)}"
+                    f" {'causal' if t.group(3) == '1' else 'full'}"
+                    if t else m.group(1))
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def heads_flat(x: torch.Tensor) -> torch.Tensor:
@@ -3279,22 +3313,22 @@ def heads_flat(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, 0, 0, (-s) % BLK)).contiguous()
 
 
-def flash_agreement(got, want, v, sk):
-    """Kernel against twin, every element. f32: within the summation-order
-    bound B = (D + Sk) * 2^-24 * max|v| plus 4 ULP of max|v| for expf (the
-    output is a convex combination of v rows, so |o| <= max|v|). bf16: each
-    side rounds its own f32 result, so within B plus one bf16 ULP of the
-    larger of the two (half an ULP each): near zero, where the f32 sum
-    cancels, B dominates and the difference can be many bf16 ULPs of the
-    value. Returns (ok, max |d|, B, the largest difference in bf16 ULPs or
-    None for f32)."""
+def flash_agreement(got, want, bound):
+    """Kernel against twin, every element, within the f32 route's stated
+    bound (``flash_attention.f32_twin_bound``, derived in
+    ``csrc/flash_attention.cu``), plus one bf16 ULP of the larger of the two
+    in bf16 (each side rounds its own f32 result). Returns (ok, max |d|,
+    the largest |d| / limit, the largest |d| in bf16 ULPs or None for
+    f32)."""
     diff = (got.double() - want.double()).abs()
-    err = float(diff.max())
-    bound = (got.shape[-1] + sk + 8) * 2.0 ** -24 * float(v.abs().max())
-    if got.dtype == torch.float32:
-        return err <= bound, err, bound, None
-    return (bool((diff <= bf16_ulp(got, want) + bound).all()), err, bound,
-            float((diff / bf16_ulp(got, want)).max()))
+    limit = bound
+    ulps = None
+    if got.dtype == torch.bfloat16:
+        ulp = bf16_ulp(got, want)
+        limit = bound + ulp
+        ulps = float((diff / ulp).max())
+    return (bool((diff <= limit).all()), float(diff.max()),
+            float((diff / limit).max()), ulps)
 
 
 def bf16_ulp(a, b):
@@ -3348,6 +3382,32 @@ def twin_without_key_tile(q, k, v, tile, causal):
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
 
 
+def f32_twin_without_key_tile(q, k, v, tile, causal):
+    """``flash_attention_plain``'s arithmetic (q scaled before the dot
+    product, tiles of 128, P in f32) with keys [64 tile, 64 tile + 64) left
+    out, as masked keys: what an f32 kernel that skips that key tile would
+    return."""
+    from repro_torch.kernels import flash_attention as fa
+    bh, sq, d = q.shape
+    qf = q.float() * (1.0 / d ** 0.5)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq), fa.NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    for k0 in range(0, k.shape[1], BLK):
+        s = qf @ k[:, k0:k0 + BLK].float().transpose(1, 2)
+        k_pos = k0 + torch.arange(BLK, device=q.device)[None, :]
+        keep = (k_pos // 64 != tile) & ((q_pos >= k_pos) if causal else True)
+        s = torch.where(keep, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + BLK].float()
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
 def flash_case(label, b, sq, sk, h, hkv, d, dtype, causal, seed):
     """q [B, Sq, H, D] and k, v [B, Sk, H, D] normals on the card; kv drawn
     with Hkv heads and broadcast in ``attend``'s grouping (q head i reads kv
@@ -3380,14 +3440,23 @@ def flash_timing(kernel, label, name, qb, kb, vb, b, h, sq, sk, d, causal,
     ops_n = 4 * b * h * causal_pairs(sq, sk, causal) * d
     peak = BF16_OPS_PER_S if qb.dtype == torch.bfloat16 else F32_OPS_PER_S
     q4, k4, v4 = (t.view(b, h, -1, d) for t in (qb, kb, vb))
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa():
+        # never the math backend, which would hold all Sq x Sk scores
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal)
+
     row = timing_row(
         kernel, label, name, nbytes, ops_n,
         time_ms(fn, 3 if big else 20, 1 if big else 2),
         time_ms(twin, 1 if big else 5, 0 if big else 1),
         f"F.scaled_dot_product_attention(is_causal={causal})",
-        time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal), 3 if big else 20,
-            1 if big else 2), peak)
+        time_ms(sdpa, 3 if big else 20, 1 if big else 2), peak)
+    row["library_ratio"] = row["ms"] / row["library_ms"]
     print("[timing]", json.dumps(row))
     return row
 
@@ -3395,39 +3464,63 @@ def flash_timing(kernel, label, name, qb, kb, vb, b, h, sq, sk, d, causal,
 def flash_parity_and_timings(record):
     """Every FLASH_CASES case on the same padded [BH, S, D] tensors.
 
-    The present kernel (``flash_attention_cuda``) against its twin: f32
-    within the summation-order bound; bf16 within it plus one bf16 ULP, and
-    equal bit for bit to the f32 kernel on the upcasts, rounded. The wgmma
-    kernel (every bf16 case: D 64 and 128, padded to 128) against its twin
-    within ``wgmma_twin_and_bound`` plus one bf16 ULP, and that twin against
-    the f32 twin on the upcasts within its ``both_round=False`` bound plus
-    one bf16 ULP; at the serve shape and 32k the check must also reject the
-    twin's output with the middle key tile left out (a planted fault). The
-    ragged cases also go through ``ops.flash_attention``, which must return
-    the padded kernel call's rows (the wgmma kernel's in bf16). Timed: the
-    serve shape, yi-9b's heads and 32k, kernel, twin and SDPA."""
+    The f32 route (``flash_attention_cuda``) against its twin within
+    ``f32_twin_bound`` (plus one bf16 ULP in bf16), bf16 equal bit for bit
+    to the f32 kernel on the upcasts, rounded; at the serve shape and 32k
+    in f32 the check must also reject the twin with the middle key tile
+    left out (a planted fault). The wgmma kernel (every bf16 case at D 64
+    and 128, padded to 128) against its twin within
+    ``wgmma_twin_and_bound`` plus one bf16 ULP, and that twin against the
+    f32 twin on the upcasts within its ``both_round=False`` bound plus one
+    bf16 ULP; at the serve shape and 32k the check must also reject the
+    twin's output with the middle key tile left out. The ragged cases also
+    go through ``ops.flash_attention``, which must return the padded kernel
+    call's rows. Timed: the f32 route at ``FLASH_TIMED``, the wgmma kernel
+    at every bf16 serve, yi-9b and 32k case; kernel, twin and SDPA at the
+    same dtype."""
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False     # the twins in f32
     s32k = SHAPES["prefill_32k"].seq_len
     cases, rows, worst, worst_wg = [], [], 0.0, 0.0
+    new_s = 0.0      # seconds of the f32 D 128, f32 32k and bf16 D 32 cases
     for seed, (label, b, sq, sk, h, hkv, d, dtype, causal) in enumerate(
             FLASH_CASES):
+        t_case = time.perf_counter()
         sq, sk = sq or s32k, sk or s32k
         q, k, v = flash_case(label, b, sq, sk, h, hkv, d, dtype, causal,
                              400 + seed)
         qb, kb, vb = heads_flat(q), heads_flat(k), heads_flat(v)
         got = fa.flash_attention_cuda(qb, kb, vb, causal=causal)
         want = fa.flash_attention_plain(qb, kb, vb, causal=causal)
+        bound = fa.f32_twin_bound(qb, kb, vb, causal=causal, blk_k=BLK)
         torch.cuda.synchronize()
-        ok, err, bound, ulps = flash_agreement(got, want, vb, kb.shape[1])
+        ok, err, share, ulps = flash_agreement(got, want, bound)
         name = f"{label} [{b}, {sq}x{sk}, {h}, {d}] {str(dtype)[6:]}" + (
             "" if causal else " non-causal")
-        what = f"bound {bound:.3g}" + ("" if ulps is None else
-                                       f" + 1 ULP; max {ulps:.3g} bf16 ULPs")
+        what = (f"{share:.3g} of f32_twin_bound" + ("" if ulps is None else
+                f" + 1 ULP; max {ulps:.3g} bf16 ULPs"))
         check(ok, f"flash_attention {name}: max |d| {err:.3g}, {what}")
-        entry = dict(case=name, max_abs_err=err, bound=bound)
-        msg = f"[flash] {name}: max |kernel - twin| {err:.3g} ({what})"
+        entry = dict(case=name, max_abs_err=err, share_of_bound=share,
+                     bound_median=float(bound.median()),
+                     bound_max=float(bound.max()))
+        msg = (f"[flash] {name}: max |kernel - twin| {err:.3g} ({what}; "
+               f"bound median {entry['bound_median']:.3g})")
+        if dtype == torch.float32 and label in ("serve", "32k"):
+            # the check must reject a kernel that skips one key tile
+            tile = fault_tile(kb.shape[1])
+            bad = f32_twin_without_key_tile(qb, kb, vb, tile, causal)
+            ok_f, err_f, r_f, _ = flash_agreement(bad, want, bound)
+            check(not ok_f, f"flash_attention {name}: the check passes a "
+                            f"kernel that skips key tile {tile}")
+            entry.update(planted_fault=f"key tile {tile} skipped",
+                         planted_fault_max_abs=err_f,
+                         planted_fault_share_of_bound=r_f)
+            msg += (f"; skipping key tile {tile} gives {err_f:.3g} "
+                    f"({r_f:.3g}x the bound, the kernel at most {share:.3g}"
+                    f"): rejected")
+            del bad
         if dtype == torch.bfloat16:
             # the bf16 kernel runs the f32 kernel's arithmetic on exact
             # upcasts: it must be that kernel's output rounded to bf16
@@ -3437,16 +3530,21 @@ def flash_parity_and_timings(record):
                   f"flash_attention {name} == bf16(f32 kernel on upcasts)")
             twin32 = fa.flash_attention_plain(qb.float(), kb.float(),
                                               vb.float(), causal=causal)
-            ok32, err32, _, _ = flash_agreement(up, twin32, vb.float(),
-                                                kb.shape[1])
+            ok32, err32, r32, _ = flash_agreement(up, twin32, bound)
             check(ok32, f"flash_attention {name} upcast to f32: max |d| "
-                        f"{err32:.3g} > bound {bound:.3g}")
+                        f"{err32:.3g}, {r32:.3g} of f32_twin_bound")
+            entry.update(max_bf16_ulps=ulps, f32_upcast_max_abs_err=err32,
+                         f32_upcast_share_of_bound=r32)
+            msg += (f"; bf16 == bf16(f32 kernel); f32 upcast max |d| "
+                    f"{err32:.3g} ({r32:.3g} of bound)")
+            del up
+        if dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS:
             # the wgmma route: kernel against its twin, twin against f32
             wg = fa.flash_attention_wgmma_cuda(qb, kb, vb, causal=causal)
-            wg_twin, bound = fa.wgmma_twin_and_bound(qb, kb, vb,
-                                                     causal=causal)
+            wg_twin, wbound = fa.wgmma_twin_and_bound(qb, kb, vb,
+                                                      causal=causal)
             torch.cuda.synchronize()
-            ok_k, err_k, r_k = wgmma_agreement(wg, wg_twin, bound)
+            ok_k, err_k, r_k = wgmma_agreement(wg, wg_twin, wbound)
             check(ok_k, f"flash_attention_wgmma {name}: max |d| {err_k:.3g}, "
                         f"{r_k:.3g} of its bound")
             twin1, bound1 = fa.wgmma_twin_and_bound(
@@ -3455,55 +3553,63 @@ def flash_parity_and_timings(record):
             check(ok_t, f"flash_attention_wgmma twin {name} vs f32 twin: "
                         f"max |d| {err_t:.3g}, {r_t:.3g} of its bound")
             worst_wg = max(worst_wg, err_k)
-            entry.update(max_bf16_ulps=ulps, f32_upcast_max_abs_err=err32,
-                         wgmma_max_abs_err=err_k, wgmma_share_of_bound=r_k,
-                         wgmma_bound_median=float(bound.median()),
+            entry.update(wgmma_max_abs_err=err_k, wgmma_share_of_bound=r_k,
+                         wgmma_bound_median=float(wbound.median()),
                          wgmma_twin_vs_f32_max_abs=err_t,
                          wgmma_twin_share_of_bound=r_t)
-            msg += (f"; bf16 == bf16(f32 kernel); f32 upcast max |d| "
-                    f"{err32:.3g}; wgmma vs its twin {err_k:.3g} ({r_k:.3g} "
-                    f"of bound), twin vs f32 twin {err_t:.3g} ({r_t:.3g})")
+            msg += (f"; wgmma vs its twin {err_k:.3g} ({r_k:.3g} of bound), "
+                    f"twin vs f32 twin {err_t:.3g} ({r_t:.3g})")
             if label in ("serve", "32k"):
                 # the check must reject a kernel that skips one key tile
                 tile = fault_tile(kb.shape[1])
                 bad = twin_without_key_tile(qb, kb, vb, tile, causal)
-                ok_f, err_f, r_f = wgmma_agreement(bad, wg_twin, bound)
+                ok_f, err_f, r_f = wgmma_agreement(bad, wg_twin, wbound)
                 check(not ok_f, f"flash_attention_wgmma {name}: the check "
                                 f"passes a kernel that skips key tile {tile}")
-                entry.update(planted_fault=f"key tile {tile} skipped",
-                             planted_fault_max_abs=err_f,
-                             planted_fault_share_of_bound=r_f)
-                msg += (f"; skipping key tile {tile} gives {err_f:.3g} "
-                        f"({r_f:.3g} of bound): rejected")
+                entry.update(wgmma_planted_fault=f"key tile {tile} skipped",
+                             wgmma_planted_fault_max_abs=err_f,
+                             wgmma_planted_fault_share_of_bound=r_f)
+                msg += (f"; wgmma: skipping key tile {tile} gives "
+                        f"{err_f:.3g} ({r_f:.3g} of bound): rejected")
                 del bad
-            del up, twin32, wg_twin, bound, twin1, bound1
+            del wg_twin, wbound, twin1, bound1
+        if dtype == torch.bfloat16:
+            del twin32
         if label == "ragged":
             entry_out = ops.flash_attention(q, k, v, causal=causal)
-            ref = wg if dtype == torch.bfloat16 else got
+            ref = wg if fa.takes_wgmma(qb, kb) else got
             flat = ref[:, :sq].reshape(b, h, sq, d).transpose(1, 2)
             check(torch.equal(entry_out, flat),
                   f"ops.flash_attention {name} == the padded kernel call")
         worst = max(worst, err)
-        cases.append(entry)
         print(msg)
-        if label in ("serve", "32k", "yi-9b heads"):
-            args = (label, name, qb, kb, vb, b, h, sq, sk, d, causal)
-            if label != "yi-9b heads":
-                rows.append(flash_timing(
-                    "flash_attention", *args,
-                    lambda: fa.flash_attention_cuda(qb, kb, vb),
-                    lambda: fa.flash_attention_plain(qb, kb, vb)))
-            if dtype == torch.bfloat16:
-                rows.append(flash_timing(
-                    "flash_attention_wgmma", *args,
-                    lambda: fa.flash_attention_wgmma_cuda(qb, kb, vb),
-                    lambda: fa.flash_attention_wgmma_plain(qb, kb, vb)))
-        del q, k, v, qb, kb, vb, got, want
-        if dtype == torch.bfloat16:
+        args = (label, name, qb, kb, vb, b, h, sq, sk, d, causal)
+        if (label, dtype) in FLASH_TIMED:
+            rows.append(flash_timing(
+                "flash_attention", *args,
+                lambda: fa.flash_attention_cuda(qb, kb, vb),
+                lambda: fa.flash_attention_plain(qb, kb, vb)))
+        if dtype == torch.bfloat16 and label in ("serve", "32k",
+                                                 "yi-9b heads"):
+            rows.append(flash_timing(
+                "flash_attention_wgmma", *args,
+                lambda: fa.flash_attention_wgmma_cuda(qb, kb, vb),
+                lambda: fa.flash_attention_wgmma_plain(qb, kb, vb)))
+        del q, k, v, qb, kb, vb, got, want, bound
+        if dtype == torch.bfloat16 and d in fa.WGMMA_HEAD_DIMS:
             del wg
         torch.cuda.empty_cache()
+        entry["seconds"] = time.perf_counter() - t_case
+        if (label, dtype) in (("yi-9b heads", torch.float32),
+                              ("32k", torch.float32), ("D 32",
+                                                       torch.bfloat16)):
+            new_s += entry["seconds"]
+        cases.append(entry)
     record["flash_cases"] = cases
     record["flash_timings"] = rows
+    record["flash_added_cases_s"] = new_s
+    print(f"[flash] the f32 D 128, f32 32k and bf16 D 32 cases took "
+          f"{new_s:.1f} s")
     return worst, worst_wg, rows
 
 
@@ -5808,9 +5914,12 @@ def main() -> int:
     record = {"torch": torch.__version__, "cuda": torch.version.cuda}
     t0 = time.perf_counter()
     build.check_device()
-    build.build()
+    paths = build.build()
     record["build_s"] = time.perf_counter() - t0
     print(f"[build] {len(build.KERNELS)} kernels in {record['build_s']:.1f} s")
+    record["flash_ptxas"] = ptxas_report(paths["flash_attention"])
+    for entry in record["flash_ptxas"]:
+        print("[ptxas flash_attention]", entry)
 
     t0 = time.perf_counter()
     worst = kernel_parity(tf, fm, (MAIN, PRICED, LEAF, RAGGED, ASYNC_BUFFER,
@@ -5970,10 +6079,10 @@ def main() -> int:
             library_ms=m["library_ms"], leaf_ms=lf["ms"],
             leaf_plain_ms=lf["plain_ms"], leaf_bound_ms=lf["bound_ms"],
             leaf_library_ms=lf["library_ms"], parity="bitwise", **extra))
-    old = {r["shape"]: r for r in flash_rows
-           if r["kernel"] == "flash_attention" and "bfloat16" in r["variant"]}
-    fl32 = next(r for r in flash_rows if "float32" in r["variant"])
-    m, big = old["serve"], old["32k"]
+    fl = {(r["shape"], "bfloat16" in r["variant"]): r for r in flash_rows
+          if r["kernel"] == "flash_attention"}
+    m, yi, big, d32 = (fl[("serve", False)], fl[("yi-9b heads", False)],
+                       fl[("32k", False)], fl[("D 32", True)])
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
@@ -5982,12 +6091,17 @@ def main() -> int:
         max_abs_err=worst["flash_attention"], ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=m["library_ms"],
-        shape=m["variant"], f32_ms=fl32["ms"], f32_plain_ms=fl32["plain_ms"],
-        f32_bound_ms=fl32["bound_ms"], f32_library_ms=fl32["library_ms"],
+        shape=m["variant"], library_ratio=m["library_ratio"],
+        yi9b_ms=yi["ms"], yi9b_plain_ms=yi["plain_ms"],
+        yi9b_bound_ms=yi["bound_ms"], yi9b_library_ms=yi["library_ms"],
         ms_32k=big["ms"], plain_ms_32k=big["plain_ms"],
         bound_ms_32k=big["bound_ms"], library_ms_32k=big["library_ms"],
-        parity="within B = (D + Sk + 8) * 2^-24 * max|v| (f32), B + 1 ULP "
-               "(bf16); bf16 == bf16(f32 kernel on upcasts)"))
+        bf16_d32_ms=d32["ms"], bf16_d32_plain_ms=d32["plain_ms"],
+        bf16_d32_bound_ms=d32["bound_ms"],
+        bf16_d32_library_ms=d32["library_ms"],
+        parity="within f32_twin_bound (f32), + 1 ULP (bf16); bf16 == "
+               "bf16(f32 kernel on upcasts); the check rejects a skipped "
+               "key tile at 2048 and 32k"))
     wg = {r["shape"]: r for r in flash_rows
           if r["kernel"] == "flash_attention_wgmma"}
     m, yi, big = wg["serve"], wg["yi-9b heads"], wg["32k"]

@@ -10,11 +10,16 @@ max ``m``, denominator ``l`` and accumulator ``acc`` are f32; the output is
 
 Two hand-written Hopper kernels, each with its plain PyTorch twin:
 
-  * ``flash_attention_cuda``: ``csrc/flash_attention.cu``, one CTA per (bh,
-    64-query tile), f32 on the CUDA cores, for f32 and bf16 and D in
-    ``HEAD_DIMS``; its twin ``flash_attention_plain`` runs the same blockwise
-    online softmax vectorised over BH and the query rows. The CPU tests hold
-    the twin to the Pallas kernel; ``chip_smoke.py`` holds the kernel to it;
+  * ``flash_attention_cuda``: ``csrc/flash_attention.cu``, f32 on the CUDA
+    cores, for f32 and bf16 and D in ``HEAD_DIMS``: one CTA per (bh, 128
+    query rows), a producer warp streaming K and V tiles of 64 keys through
+    a shared-memory ring on mbarriers (cp.async), eight warps each owning
+    16 query rows (8 x 4 score micro-tiles, P through a per-warp slice),
+    the mask only on tiles that cross the diagonal or Sk. Its twin
+    ``flash_attention_plain`` runs the same blockwise online softmax
+    vectorised over BH and the query rows. The CPU tests hold the twin to
+    the Pallas kernel and to an f64 sum; ``chip_smoke.py`` holds the kernel
+    to the twin;
   * ``flash_attention_wgmma_cuda``: ``csrc/flash_attention_wgmma.cu``, bf16
     on the tensor cores (``wgmma``, K and V streamed by TMA), D in
     ``WGMMA_HEAD_DIMS``; it must round P to bf16 for the PV product, and
@@ -22,13 +27,15 @@ Two hand-written Hopper kernels, each with its plain PyTorch twin:
     are held to each other, and the twin to the reference, within the
     bound ``wgmma_twin_and_bound`` computes from the twin's own weights.
 
-The f32 kernel sums in another order than its twin (its own key tiles, its
-own dot-product order), so the two agree within a stated bound, not bit for
-bit:
-f32 outputs within ``B = (D + Sk) * 2^-24 * max|v|`` plus 4 ULP of
-``max|v|``; bf16 outputs within that plus one bf16 ULP, as each side rounds
-its own f32 result (and the bf16 kernel's output is the f32 kernel's on the
-upcast inputs, rounded).
+The f32 kernel sums in another order than its twin (its own key tiles of
+64, its own dot-product order), so the two agree within a stated bound,
+not bit for bit: ``f32_twin_bound`` computes, per element and in f64 from
+the inputs, how far two f32 evaluations that sum keys in tiles (of 64 and
+of ``blk_k``) may lie apart (derived in ``csrc/flash_attention.cu``:
+the dot products' order, expf, the alphas, the within- and across-tile
+sums of l and acc). bf16 outputs within that plus one bf16 ULP of the
+larger of the two, as each side rounds its own f32 result (and the bf16
+kernel's output is the f32 kernel's on the upcast inputs, rounded).
 
 ``flash_attention`` picks by the tensor's device: ``flash_attention_plain``
 for CPU tensors; for CUDA tensors the wgmma kernel when the inputs are bf16
@@ -52,6 +59,10 @@ NEG_INF = -1e30
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the f32 kernel's key tile (csrc/flash_attention.cu)
+FA_BK = 64
+#: f32 round-to-nearest unit roundoff
+U_F32 = 2.0 ** -24
 #: head dims of the wgmma kernel, and its query and key tiles
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ, WGMMA_BK = 128, 64
@@ -99,6 +110,99 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + p @ vb
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def f32_twin_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, blk_k: int = 128) -> torch.Tensor:
+    """Elementwise f64 bound [BH, Sq, D] on how far two f32 evaluations of
+    ``flash_attention`` on these inputs may lie apart before any rounding
+    of the output to bf16 (add one bf16 ULP of the larger of the two for
+    that): one summing keys in tiles of ``FA_BK`` by sequential FMAs (the
+    kernel), the other in tiles of ``blk_k`` by matmuls in any order (the
+    twin). Derived in ``csrc/flash_attention.cu``; computed here from the
+    inputs by an f64 blockwise recurrence (exact weights w_j, output o,
+    S = sum_j w_j |v_j|, the prefix sums the alphas carry), never from
+    either side's output, so a side that drops or repeats a key tile gets
+    no room from it."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dev, f64, u = q.device, torch.float64, U_F32
+    qs = (q.float() * (1.0 / (d ** 0.5))).to(f64)   # both sides' scaled q
+    qa = qs.abs()
+    kd, vd = k.to(f64), v.to(f64)
+    gam = d * u / (1 - d * u)
+    # a tile may move the running max on either side when its max is
+    # within 2 gamma_D max_j A_j of it (A_j <= |q| max|k|, Cauchy-Schwarz)
+    a_cs = qs.norm(dim=-1) * kd.norm(dim=-1).amax(dim=1, keepdim=True)
+    tol = 2 * gam * a_cs
+    zero = lambda *s: torch.zeros(s, dtype=f64, device=dev)   # noqa: E731
+    m = torch.full((bh, sq), -torch.inf, dtype=f64, device=dev)
+    l, x0, y0, changes = (zero(bh, sq) for _ in range(4))
+    acc, s_abs, x1, y1, z = (zero(bh, sq, d) for _ in range(5))
+    m_first = m_first_twin = None
+    for k0 in range(0, sk, FA_BK):
+        k1 = min(sk, k0 + FA_BK)
+        r0 = k0 if causal else 0      # causal: earlier rows see none of it
+        if r0 >= sq:
+            break
+        kt, va = kd[:, k0:k1], vd[:, k0:k1].abs()
+        s = qs[:, r0:] @ kt.transpose(1, 2)              # [BH, rows, keys]
+        a = qa[:, r0:] @ kt.abs().transpose(1, 2)
+        if causal:
+            valid = (torch.arange(r0, sq, device=dev)[:, None]
+                     >= torch.arange(k0, k1, device=dev)[None, :])
+            s = s.masked_fill(~valid, -torch.inf)
+        t_max = s.amax(dim=-1)
+        mo = m[:, r0:]
+        m_new = torch.maximum(mo, t_max)
+        p = torch.exp(s - m_new[..., None])
+        gap = torch.where(p > 0, m_new[..., None] - s, 0.0)   # M - s_j >= 0
+        if k0 == 0:
+            m_first = t_max
+            m_first_twin = (t_max if blk_k >= FA_BK
+                            else s[..., :blk_k].amax(dim=-1))
+            alpha = torch.zeros_like(t_max)
+            dm = torch.zeros_like(t_max)
+        else:
+            changes[:, r0:] += (t_max >= mo - tol[:, r0:]).to(f64)
+            dm = m_new - mo
+            alpha = torch.exp(-dm)
+        al = alpha[..., None]
+        z[:, r0:] = al * (z[:, r0:] + acc[:, r0:].abs())
+        x1[:, r0:] = al * (x1[:, r0:] + dm[..., None] * s_abs[:, r0:]) + (
+            p * gap) @ va
+        x0[:, r0:] = alpha * (x0[:, r0:] + dm * l[:, r0:]) + (
+            p * gap).sum(dim=-1)
+        y1[:, r0:] = al * y1[:, r0:] + (p * a) @ va
+        y0[:, r0:] = alpha * y0[:, r0:] + (p * a).sum(dim=-1)
+        s_abs[:, r0:] = al * s_abs[:, r0:] + p @ va
+        acc[:, r0:] = al * acc[:, r0:] + p @ vd[:, k0:k1]
+        l[:, r0:] = alpha * l[:, r0:] + p.sum(dim=-1)
+        m[:, r0:] = m_new
+    lc = l[..., None]
+    o = acc / lc
+    oa = o.abs()
+    S = s_abs / lc
+    X = (x1 + oa * x0[..., None]) / lc
+    Y = (y1 + oa * y0[..., None]) / lc
+    zn = z / lc
+    n_k, n_t = -(-sk // FA_BK), -(-sk // blk_k)
+    if blk_k % FA_BK == 0:           # the twin's changes and tile starts
+        c_twin, z_twin = changes, zn  # are among the kernel's
+    else:
+        c_twin = torch.minimum(changes * (FA_BK // blk_k + 2),
+                               torch.full_like(changes, n_t - 1))
+        z_twin = (n_t - 1) * S
+    eta_k = 4 * u * (1 + changes) + u * (m - m_first)
+    eta_t = 4 * u * (1 + c_twin) + u * (m - m_first_twin)
+    weights = 2 * gam * Y + (eta_k + eta_t)[..., None] * (S + oa) + 2 * u * X
+    sums = u * (65 * zn + 2 * z_twin + (blk_k + 66) * S)
+    l_sums = u * (9 + 2 * n_k + blk_k + 2 * n_t) * oa
+    vmax = vd.abs().amax(dim=1, keepdim=True)
+    tiny = 2 * sk * 2.0 ** -148 * (vmax + oa)
+    delta = (gam * a_cs + torch.maximum(eta_k, eta_t) + 2.0 ** -17)[..., None]
+    return ((weights + sums + l_sums + tiny) * (1 + delta) / (1 - delta)
+            * (1 + 2.0 ** -10))
 
 
 def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -277,7 +381,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          blk_k: int = 128) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors (raises on anything the
     kernel does not take). ``blk_q``/``blk_k`` only fix the divisibility the
-    reference asserts; the kernel tiles by its own 64 x 64."""
+    reference asserts; the kernel tiles by its own 128 query rows and 64
+    keys."""
     check_inputs(q, k, v, blk_q, blk_k)
     bh, sq, d = q.shape
     fn = _flash_lib()

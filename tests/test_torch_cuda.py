@@ -1,9 +1,9 @@
 """The port's Hopper kernels on the card: each FL kernel bit for bit
 against its plain twin (``threshold_find`` and the block kernels also on
 adversarial rows, the block kernels also on rows wider than their register
-path), the present
-``flash_attention`` kernel within its summation-order bound of its twin
-(plus one bf16 ULP in bf16), the bf16 wgmma kernel within the bound of
+path), the f32
+``flash_attention`` kernel within ``f32_twin_bound`` of its twin (plus one
+bf16 ULP in bf16) at every head dim, causal and full, ragged Sq and Sk, the bf16 wgmma kernel within the bound of
 ``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
 wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused, legacy
 and scan engines: scan replays one captured CUDA graph a round, bit-equal to
@@ -273,14 +273,14 @@ def test_async_batched_equals_sequential_on_the_card(card):
     assert b.async_loop.train_calls < s.async_loop.train_calls
 
 
-def _flash_close(got, want, v):
-    """Within B = (D + Sk + 8) * 2^-24 * max|v| (the summation-order bound);
-    bf16 within B plus one bf16 ULP (each side rounds its own f32 sum)."""
+def _flash_close(got, want, q, k, v, causal=True, blk_k=128):
+    """Within ``f32_twin_bound`` of the [BH, S, D] inputs (derived in
+    ``csrc/flash_attention.cu``); bf16 within it plus one bf16 ULP of the
+    larger (each side rounds its own f32 result)."""
     diff = (got.double() - want.double()).abs()
-    bound = (got.shape[-1] + v.shape[1] + 8) * 2.0 ** -24 * \
-        float(v.float().abs().max())
+    bound = fa.f32_twin_bound(q, k, v, causal=causal, blk_k=blk_k)
     if got.dtype == torch.float32:
-        return float(diff.max()) <= bound
+        return bool((diff <= bound).all())
     _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
     return bool((diff <= torch.pow(2.0, (e - 8).double()) + bound).all())
 
@@ -293,18 +293,50 @@ def test_flash_kernel_vs_twin(card, d, dtype, causal):
     q = torch.randn(3, 256, d, device=card, generator=g).to(dtype)
     k = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
     v = torch.randn(3, 384, d, device=card, generator=g).to(dtype)
-    # the present kernel (bf16 at D 64 / 128 reaches it only directly: the
+    # the f32 route (bf16 at D 64 / 128 reaches it only directly: the
     # entry point sends those to the wgmma kernel)
     f0 = fa.flash_attention.launches
     got = fa.flash_attention_cuda(q, k, v, causal=causal)
     assert fa.flash_attention.launches == f0 + 1
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and _flash_close(got, want, v)
+    assert got.dtype == dtype and _flash_close(got, want, q, k, v, causal)
     if dtype == torch.bfloat16:       # the f32 arithmetic on exact upcasts
         up = fa.flash_attention_cuda(q.float(), k.float(), v.float(),
                                      causal=causal)
         assert torch.equal(got, up.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 300), (300, 200), (1, 65),
+                                   (129, 64), (100, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_ragged(card, sq, sk, dtype, causal):
+    """Sq and Sk that are no multiple of the kernel's tiles (keys past Sk
+    masked in the last tile, rows past Sq not written), Sq above and below
+    Sk; the twin in one block of each."""
+    g = torch.Generator(device=card).manual_seed(sq + sk)
+    q = torch.randn(2, sq, 64, device=card, generator=g).to(dtype)
+    k, v = (torch.randn(2, sk, 64, device=card, generator=g).to(dtype)
+            for _ in range(2))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, blk_q=sq,
+                                  blk_k=sk)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, blk_q=sq,
+                                    blk_k=sk)
+    torch.cuda.synchronize()
+    assert _flash_close(got, want, q, k, v, causal, blk_k=sk)
+    if dtype == torch.bfloat16:
+        up = fa.flash_attention_cuda(q.float(), k.float(), v.float(),
+                                     causal=causal, blk_q=sq, blk_k=sk)
+        assert torch.equal(got, up.to(torch.bfloat16))
+
+
+def _padded_flat(x):
+    """[B, S, H, D] -> [B*H, S padded to 128, D], as ops.flash_attention
+    pads it."""
+    b, s, h, d = x.shape
+    t = x.transpose(1, 2).reshape(b * h, s, d)
+    return torch.nn.functional.pad(t, (0, 0, 0, (-s) % 128)).contiguous()
 
 
 def _wgmma_close(got, want, bound):
@@ -489,7 +521,10 @@ def test_flash_entry_point_ragged_and_gqa(card):
     got = ops.flash_attention(q, k, v)
     want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu())   # the twin
     assert got.shape == q.shape
-    assert _flash_close(got, want.to(card), v)
+    bound = fa.f32_twin_bound(*(_padded_flat(t) for t in (q, k, v)))
+    bound = bound[:, :1000].reshape(2, 8, 1000, 64).transpose(1, 2)
+    assert bool(((got.double() - want.to(card).double()).abs()
+                 <= bound).all())
 
 
 def test_flash_refuses_what_the_kernel_does_not_take(card):

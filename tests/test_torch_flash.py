@@ -19,8 +19,16 @@ terms, ~1e-7 at outputs of scale ~1:
     f32 difference exceeds a bf16 ULP of the value;
   * the entry point against the model's chunked ``attend``: the reference's
     ``1e-5`` (``test_matches_model_attend``), and block shapes against each
-    other ``1e-5`` (``test_block_shape_invariance``).
+    other ``1e-5`` (``test_block_shape_invariance``);
+  * the f32 kernel's stated bound ``f32_twin_bound`` (derived in
+    ``csrc/flash_attention.cu``, computed per element in f64 from the
+    inputs): the twin against an f64 numpy sum and against the Pallas
+    kernel within it (plus one bf16 ULP of the larger in bf16), and a twin
+    with one key tile of 64 left out outside it.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +193,104 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernels_list_names_flash_attention():
     assert "flash_attention" in build.KERNELS
     assert (build.CSRC / "flash_attention.cu").exists()
+
+
+# ------------------------------------------------ the f32 kernel's bound
+def _f64_attention(q, k, v, causal):
+    """The function in f64 numpy from the same f32 inputs: q scaled in f32
+    (as both f32 evaluations scale it), then an exact softmax, 256 query
+    rows at a time."""
+    d = q.shape[-1]
+    qs = (q.float() * (1.0 / d ** 0.5)).double().numpy()
+    kd, vd = k.double().numpy(), v.double().numpy()
+    sq, sk = qs.shape[1], kd.shape[1]
+    out = np.empty(qs.shape)
+    for r0 in range(0, sq, 256):
+        s = qs[:, r0:r0 + 256] @ kd.transpose(0, 2, 1)
+        if causal:
+            rows = np.arange(r0, min(sq, r0 + 256))[:, None]
+            s = np.where(rows >= np.arange(sk)[None, :], s, -np.inf)
+        w = np.exp(s - s.max(axis=-1, keepdims=True))
+        out[:, r0:r0 + 256] = (w @ vd) / w.sum(axis=-1, keepdims=True)
+    return out
+
+
+def _twin_skipping_tile():
+    """``chip_smoke.f32_twin_without_key_tile``: the twin with one key tile
+    of 64 left out, the fault the card run plants too."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.f32_twin_without_key_tile
+
+
+def _within(got, want, bound):
+    """|got - want| <= bound (f32), + one bf16 ULP of the larger (bf16);
+    returns (ok, the largest |d| / limit)."""
+    g = got.double()
+    w = (want.double() if isinstance(want, torch.Tensor)
+         else torch.from_numpy(np.array(want, dtype=np.float64)))
+    diff = (g - w).abs()
+    limit = bound.clone()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()).float())
+        limit = limit + torch.pow(2.0, (e - 8).double())
+    return bool((diff <= limit).all()), float((diff / limit).max())
+
+
+def _seeded(seed, shape_q, shape_kv, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+            for s in (shape_q, shape_kv, shape_kv)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_twin_within_f32_bound_of_f64_sum(causal, dtype):
+    """[2, 4096, 64]: the twin (tiles of 128) against the f64 sum within
+    ``f32_twin_bound``: its own error is at most half of it."""
+    q, k, v = _seeded(10, (2, 4096, 64), (2, 4096, 64), dtype)
+    bound = fa.f32_twin_bound(q, k, v, causal=causal)
+    ok, share = _within(fa.flash_attention_plain(q, k, v, causal=causal),
+                        _f64_attention(q, k, v, causal), bound)
+    assert ok, share
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_dropped_key_tile_fails_f32_bound(causal):
+    """A twin that leaves out one key tile of 64 (keys 2048..2111 of 4096)
+    lies outside ``f32_twin_bound`` of the f64 sum."""
+    q, k, v = _seeded(11, (2, 4096, 64), (2, 4096, 64))
+    bound = fa.f32_twin_bound(q, k, v, causal=causal)
+    bad = _twin_skipping_tile()(q, k, v, 32, causal)
+    ok, share = _within(bad, _f64_attention(q, k, v, causal), bound)
+    assert not ok and share > 10, share
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_twin_within_f32_bound_of_pallas(causal, d):
+    """The twin (tiles of 128) against the Pallas kernel in interpret mode
+    (tiles of 64, as the card kernel's) within ``f32_twin_bound``."""
+    q, k, v = _seeded(12 + d, (2, 256, d), (2, 256, d))
+    want = flash_attention_pallas(*(jnp.asarray(t.numpy()) for t in
+                                     (q, k, v)), causal=causal, blk_q=64,
+                                  blk_k=64, interpret=True)
+    bound = fa.f32_twin_bound(q, k, v, causal=causal)
+    ok, share = _within(fa.flash_attention_plain(q, k, v, causal=causal),
+                        np.asarray(want), bound)
+    assert ok, share
+
+
+def test_f32_bound_ragged_tiles():
+    """Sq 200 x Sk 300 causal, the twin in one tile of each (blk_k 300, not
+    a multiple of 64: the twin's changes and tile starts are bounded
+    apart from the kernel's) against the f64 sum."""
+    q, k, v = _seeded(13, (3, 200, 32), (3, 300, 32))
+    bound = fa.f32_twin_bound(q, k, v, causal=True, blk_k=300)
+    got = fa.flash_attention_plain(q, k, v, causal=True, blk_q=200,
+                                   blk_k=300)
+    ok, share = _within(got, _f64_attention(q, k, v, True), bound)
+    assert ok, share
