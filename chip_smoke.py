@@ -125,8 +125,10 @@
    sequence of ``prefill_32k`` (bf16 and f32) and bf16 at D 32 (a head dim
    the wgmma route refuses); the f32 route timed at f32 serve, D 128 and
    32k and bf16 D 32, the wgmma route at its bf16 cases, each beside its
-   twin and ``F.scaled_dot_product_attention`` at the same dtype; the f32
-   kernel's registers and spills from its build log;
+   twin and ``F.scaled_dot_product_attention`` at the same dtype (with
+   each one's share of its bound); both kernels' registers and spills from
+   their build logs, and a check that the wgmma build reports no ignored
+   ``setmaxnreg`` (C7508) and no serialized wgmma;
    ``ops.flash_attention`` on layer 0's own q, k, v of a 2048-token prompt
    against ``attention.attend`` (bf16 through the wgmma kernel, f32
    through the f32 route, launches counted); and ``launch.serve.generate``: a 128-token prompt stepped
@@ -3286,7 +3288,8 @@ BLK = 128                     # ops.flash_attention's default blocks
 def ptxas_report(lib_path):
     """Registers and spills of each kernel in a library's build log (the
     compiler's ``-Xptxas -v`` report kept beside it): one line a kernel,
-    its template arguments shortened to (dtype, D, causal)."""
+    its template arguments shortened to (dtype, D, causal) for the f32
+    route's ``flash_fwd`` and to (D, causal) for ``flash_wgmma``."""
     import re
     out, name, spill = [], None, ""
     for line in lib_path.with_suffix(".log").read_text().splitlines():
@@ -3294,9 +3297,16 @@ def ptxas_report(lib_path):
         if m:
             t = re.search(r"flash_fwdI(13__nv_bfloat16|f)Li(\d+)ELb(\d)",
                           m.group(1))
-            name = (f"{'bf16' if t.group(1) != 'f' else 'f32'} D {t.group(2)}"
-                    f" {'causal' if t.group(3) == '1' else 'full'}"
-                    if t else m.group(1))
+            w = re.search(r"flash_wgmmaILi(\d+)ELb(\d)", m.group(1))
+            if t:
+                name = (f"{'bf16' if t.group(1) != 'f' else 'f32'} D "
+                        f"{t.group(2)} "
+                        f"{'causal' if t.group(3) == '1' else 'full'}")
+            elif w:
+                name = (f"wgmma bf16 D {w.group(1)} "
+                        f"{'causal' if w.group(2) == '1' else 'full'}")
+            else:
+                name = m.group(1)
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "registers" in line:
@@ -3356,9 +3366,9 @@ def fault_tile(sk: int) -> int:
 
 
 def twin_without_key_tile(q, k, v, tile, causal):
-    """The wgmma twin's arithmetic with one key tile of 64 left out: what
-    a kernel that skips that tile (a ring-phase slip, a wrong tile count)
-    would return."""
+    """The wgmma twin's arithmetic with the kernel's key tile holding key
+    64 * ``tile`` left out: what a kernel that skips that tile (a
+    ring-phase slip, a wrong tile count) would return."""
     from repro_torch.kernels import flash_attention as fa
     bh, sq, d = q.shape
     qf = q.float()
@@ -3366,18 +3376,20 @@ def twin_without_key_tile(q, k, v, tile, causal):
     m = torch.full((bh, sq), fa.NEG_INF, device=q.device)
     l = torch.zeros((bh, sq), device=q.device)
     acc = torch.zeros((bh, sq, d), device=q.device)
-    for k0 in range(0, k.shape[1], 64):
-        if k0 // 64 == tile:
+    c = fa.wgmma_scale_log2(d)
+    bk = fa.wgmma_bk(d)
+    for k0 in range(0, k.shape[1], bk):
+        if k0 <= 64 * tile < k0 + bk:
             continue
-        s = (qf @ k[:, k0:k0 + 64].float().transpose(1, 2)) / d ** 0.5
+        s = (qf @ k[:, k0:k0 + bk].float().transpose(1, 2)) * c
         if causal:
-            k_pos = k0 + torch.arange(64, device=q.device)[None, :]
+            k_pos = k0 + torch.arange(s.shape[-1], device=q.device)[None, :]
             s = torch.where(q_pos >= k_pos, s, fa.NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None]).to(torch.bfloat16).float()
-        alpha = torch.exp(m - m_new)
+        p = torch.exp2(s - m_new[..., None]).to(torch.bfloat16).float()
+        alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + 64].float()
+        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + bk].float()
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
 
@@ -3457,6 +3469,7 @@ def flash_timing(kernel, label, name, qb, kb, vb, b, h, sq, sk, d, causal,
         f"F.scaled_dot_product_attention(is_causal={causal})",
         time_ms(sdpa, 3 if big else 20, 1 if big else 2), peak)
     row["library_ratio"] = row["ms"] / row["library_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     print("[timing]", json.dumps(row))
     return row
 
@@ -5920,6 +5933,16 @@ def main() -> int:
     record["flash_ptxas"] = ptxas_report(paths["flash_attention"])
     for entry in record["flash_ptxas"]:
         print("[ptxas flash_attention]", entry)
+    record["wgmma_ptxas"] = ptxas_report(paths["flash_attention_wgmma"])
+    for entry in record["wgmma_ptxas"]:
+        print("[ptxas flash_attention_wgmma]", entry)
+    # the register split took effect (C7508: setmaxnreg ignored) and ptxas
+    # kept the products asynchronous (C7512-C7520: "wgmma.mma_async
+    # instructions are serialized due to ...")
+    wgmma_log = paths["flash_attention_wgmma"].with_suffix(".log").read_text()
+    lines = [ln.strip() for ln in wgmma_log.splitlines()
+             if "C7508" in ln or "serialized" in ln]
+    check(not lines, f"flash_attention_wgmma's build: {lines[:2]}")
 
     t0 = time.perf_counter()
     worst = kernel_parity(tf, fm, (MAIN, PRICED, LEAF, RAGGED, ASYNC_BUFFER,
@@ -6113,10 +6136,16 @@ def main() -> int:
         max_abs_err=worst["flash_attention_wgmma"], ms=m["ms"],
         plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
         bound_by=m["bound_by"], library_ms=m["library_ms"],
-        shape=m["variant"], yi9b_ms=yi["ms"], yi9b_plain_ms=yi["plain_ms"],
-        yi9b_bound_ms=yi["bound_ms"], yi9b_library_ms=yi["library_ms"],
+        shape=m["variant"], library_ratio=m["library_ratio"],
+        share_of_bound=m["share_of_bound"], yi9b_ms=yi["ms"],
+        yi9b_plain_ms=yi["plain_ms"], yi9b_bound_ms=yi["bound_ms"],
+        yi9b_library_ms=yi["library_ms"],
+        yi9b_library_ratio=yi["library_ratio"],
+        yi9b_share_of_bound=yi["share_of_bound"],
         ms_32k=big["ms"], plain_ms_32k=big["plain_ms"],
         bound_ms_32k=big["bound_ms"], library_ms_32k=big["library_ms"],
+        library_ratio_32k=big["library_ratio"],
+        share_of_bound_32k=big["share_of_bound"],
         parity="within wgmma_twin_and_bound + 1 bf16 ULP of its twin; twin "
                "within wgmma_twin_and_bound(both_round=False) + 1 ULP of the "
                "f32 twin; the check rejects a skipped key tile"))

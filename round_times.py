@@ -2,7 +2,7 @@
 where the card's time per round goes, by kernel, under ``torch.profiler``;
 with ``--rows``, the row kernels ``block_topk`` and ``ef_update`` instead.
 
-    python3 round_times.py [--engine fused|scan] [--rows]
+    python3 round_times.py [--engine fused|scan] [--rows] [--flash]
                            [--train | --prefill | --decode] [--arch ARCH]
     torchrun --nproc-per-node 4 round_times.py --layout
                            [--src DIR]
@@ -26,6 +26,16 @@ longer row [4, 262144]), at the default ratio's k, both row kernels held
 bit for bit against their twins, then timed with CUDA events beside the
 twin and ``torch.topk`` (``chip_smoke.row_kernel_rows``), and their device
 time a call under the profiler (``chip_smoke.row_kernel_device_ms``).
+
+``--flash``: the bf16 ``wgmma`` flash kernel
+(``flash_attention_wgmma_cuda``) at each of ``FLASH_SHAPES`` (the serve
+shape [4, 2048, 32, 64], yi-9b's heads at D 128 and one 32k sequence,
+causal, as ``chip_smoke.py`` times them): held to its twin within
+``wgmma_twin_and_bound`` plus one bf16 ULP, then timed with CUDA events
+(``chip_smoke.time_ms``, one call between two events, as ``chip_smoke.py``
+times it) beside ``F.scaled_dot_product_attention`` (cuDNN allowed), and
+both by device time a call under the profiler; the bound, its share and
+the SDPA ratio beside each, and the library's ``-Xptxas -v`` report.
 
 ``--train``: the real-model trainers at full width instead, for ``--arch``
 (stablelm-1.6b by default): ``launch.train`` at its CLI defaults (dense
@@ -97,6 +107,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: [nb, block] rows of ``--rows``
 ROW_SHAPES = (("main", (17, 8192)), ("leaf", (1408, 8192)),
               ("wide", (8, 32768)), ("long", (4, 262144)))
+#: (label, B, S, H, Hkv, D) of ``--flash``, causal, bf16
+FLASH_SHAPES = (("serve", 4, 2048, 32, 32, 64),
+                ("yi-9b heads", 1, 2048, 32, 4, 128),
+                ("32k", 1, 32768, 32, 32, 64))
+FLASH_REPS, FLASH_PROFILED = 30, 20
 
 
 def profile_rounds(run_fl, sim, acfg, engine):
@@ -214,6 +229,71 @@ def row_times(src: str) -> dict:
             f"{r['kernel']} {r['ms']:.4f} ms (device "
             f"{dev[r['kernel']]}, torch.topk {r['library_ms']:.4f})"
             for r in rows), file=sys.stderr)
+    return out
+
+
+def flash_times(src: str) -> dict:
+    """The wgmma flash kernel of ``src`` at each of ``FLASH_SHAPES``."""
+    sys.path.insert(1, HERE)
+    import chip_smoke as cs
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    path = build.build(["flash_attention_wgmma"])["flash_attention_wgmma"]
+    log = path.with_suffix(".log").read_text()
+    out = dict(src=src, gpu=torch.cuda.get_device_name(0),
+               build_s=time.perf_counter() - t0,
+               ptxas=cs.ptxas_report(path),
+               ptxas_warnings=[ln.strip() for ln in log.splitlines()
+                               if "warning" in ln or "C75" in ln],
+               shapes={})
+    for seed, (label, b, s, h, hkv, d) in enumerate(FLASH_SHAPES):
+        q, k, v = cs.flash_case(label, b, s, s, h, hkv, d, torch.bfloat16,
+                                True, 500 + seed)
+        qb, kb, vb = cs.heads_flat(q), cs.heads_flat(k), cs.heads_flat(v)
+        del q, k, v
+        got = fa.flash_attention_wgmma_cuda(qb, kb, vb)
+        want, bound = fa.wgmma_twin_and_bound(qb, kb, vb)
+        ok, err, share = cs.wgmma_agreement(got, want, bound)
+        cs.check(ok, f"flash_attention_wgmma {label}: max |d| {err:.3g}, "
+                     f"{share:.3g} of its bound")
+        del got, want, bound
+        torch.cuda.empty_cache()
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (qb, kb, vb))
+
+        def kernel():
+            return fa.flash_attention_wgmma_cuda(qb, kb, vb)
+
+        def sdpa():
+            with sdpa_kernel([SDPBackend.CUDNN_ATTENTION,
+                              SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)
+
+        reps = FLASH_REPS if s <= 8192 else 5
+        ops_n = 4 * b * h * cs.causal_pairs(s, s, True) * d
+        bound_ms = max(4 * b * h * s * d * 2 / cs.HBM_BYTES_PER_S,
+                       ops_n / cs.BF16_OPS_PER_S) * 1e3
+        row = dict(ms=cs.time_ms(kernel, reps),
+                   sdpa_ms=cs.time_ms(sdpa, reps), bound_ms=bound_ms,
+                   max_abs_err=err, share_of_error_bound=share)
+        for name, fn in (("device_ms", kernel), ("sdpa_device_ms", sdpa)):
+            calls = FLASH_PROFILED if s <= 8192 else 5
+            _, _, by_name = cs.device_profile(
+                lambda: [fn() for _ in range(calls)])
+            row[name] = (sum(t for t, _ in by_name.values()) / calls
+                         if by_name else "not measured")
+        row.update(share_of_bound=bound_ms / row["ms"],
+                   sdpa_ratio=row["ms"] / row["sdpa_ms"])
+        if isinstance(row["device_ms"], float) and isinstance(
+                row["sdpa_device_ms"], float):
+            row["device_sdpa_ratio"] = row["device_ms"] / row["sdpa_device_ms"]
+        out["shapes"][label] = row
+        print(f"[flash] {label}: " + json.dumps(row), file=sys.stderr)
+        del qb, kb, vb, q4, k4, v4
+        torch.cuda.empty_cache()
     return out
 
 
@@ -424,6 +504,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
                     help="time block_topk and ef_update, not the rounds")
+    ap.add_argument("--flash", action="store_true",
+                    help="time the bf16 wgmma flash kernel, not the rounds")
     ap.add_argument("--engine", choices=("fused", "scan"), default="fused",
                     help="the round engine to time (the scan engine needs "
                          "a tree that has it)")
@@ -462,6 +544,8 @@ def main() -> int:
         out = prefill_times(src, args.arch or "stablelm-1.6b")
     elif args.rows:
         out = row_times(src)
+    elif args.flash:
+        out = flash_times(src)
     else:
         out = round_times(src, args.engine)
     line = json.dumps(out)

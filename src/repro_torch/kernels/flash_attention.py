@@ -49,6 +49,7 @@ launches (``flash_attention.launches``,
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -63,14 +64,32 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FA_BK = 64
 #: f32 round-to-nearest unit roundoff
 U_F32 = 2.0 ** -24
-#: head dims of the wgmma kernel, and its query and key tiles
+#: head dims of the wgmma kernel, its query tile, and the multiple of 64
+#: keys it takes (its own key tile is ``wgmma_bk(D)``; a last tile of 64
+#: keys at D 64 is masked past Sk)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_BQ, WGMMA_BK = 128, 64
+#: stages of the wgmma kernel's K / V ring in shared memory
+WGMMA_STAGES = 4
 #: an f32 add on the tensor cores at its worst (truncation): one ulp
 U_SUM = 2.0 ** -23
-#: p below this carries no relative guarantee (bf16 denormals); such keys
-#: are held by an absolute term instead
+#: p below this carries no relative guarantee (bf16 denormals, and the
+#: kernel's exp2 flushes results below 2^-126 to zero); such keys are held
+#: by an absolute term instead
 TINY_P = 2.0 ** -100
+LN2 = math.log(2.0)
+
+
+def wgmma_bk(d: int) -> int:
+    """The wgmma kernel's key tile: 128 keys at D 64, 64 at D 128
+    (``csrc/flash_attention_wgmma.cu``, ``Cfg::BK``)."""
+    return 128 if d == 64 else 64
+
+
+def wgmma_scale_log2(d: int) -> float:
+    """The wgmma route's score factor, 1/sqrt(D) * log2(e) rounded once to
+    f32: both the kernel and its twin take exp2 of scores in log2 units."""
+    return float(torch.tensor(1.0 / (LN2 * d ** 0.5), dtype=torch.float32))
 
 
 def dot_u(d: int) -> float:
@@ -213,6 +232,8 @@ def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     assert sk % WGMMA_BK == 0
     scale = 1.0 / (d ** 0.5)
+    c = wgmma_scale_log2(d)
+    bk = wgmma_bk(d)
     dev = q.device
     qf = q.float()
     q_pos = torch.arange(sq, device=dev)[:, None]
@@ -230,17 +251,17 @@ def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         f_one = torch.zeros_like(l)        # sum of p^_j over those keys
         changes = torch.zeros_like(l)      # tiles that may move m
         m_first = None
-    for k0 in range(0, sk, WGMMA_BK):
-        kb = k[:, k0:k0 + WGMMA_BK].float()
-        vb = v[:, k0:k0 + WGMMA_BK].float()
-        s = (qf @ kb.transpose(1, 2)) * scale
+    for k0 in range(0, sk, bk):
+        kb = k[:, k0:k0 + bk].float()
+        vb = v[:, k0:k0 + bk].float()
+        s = (qf @ kb.transpose(1, 2)) * c           # log2 units
         if causal:
-            k_pos = k0 + torch.arange(WGMMA_BK, device=dev)[None, :]
+            k_pos = k0 + torch.arange(kb.shape[1], device=dev)[None, :]
             s = torch.where(q_pos >= k_pos, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        p = torch.exp2(s - m_new[..., None])
         pb = p.to(torch.bfloat16).float()
-        alpha = torch.exp(m - m_new)
+        alpha = torch.exp2(m - m_new)
         if both_round is not None:
             live = ((q_pos >= k0).expand(bh, sq, 1) if causal
                     else torch.ones((bh, sq, 1), dtype=torch.bool,
@@ -252,8 +273,10 @@ def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if both_round:
                 # the other side's p lies within p * e^(+-r) before its
                 # bf16 rounding; a rounding boundary inside means a flip
+                # (natural units: a log2-unit difference counts ln 2 times)
                 r = (2 * ds[..., None] + 2.0 ** -21
-                     + 2.0 ** -23 * (m_new[..., None] - s) + 2.0 ** -19)
+                     + LN2 * (2.0 ** -23 * (m_new[..., None] - s)
+                              + 2.0 ** -24 * s.abs()) + 2.0 ** -19)
                 flip = ((p * (1 - r)).to(torch.bfloat16)
                         != (p * (1 + r)).to(torch.bfloat16)) & (p >= TINY_P)
                 fp = pb * flip
@@ -262,14 +285,15 @@ def _wgmma_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if m_first is None:
                 m_first = m_new
             else:
-                changes += (s.amax(dim=-1) >= m - 2 * ds).float()
+                changes += (s.amax(dim=-1) >= m - 2 * ds / LN2).float()
         l = l * alpha + pb.sum(dim=-1)
         acc = acc * alpha[..., None] + pb @ vb
         m = m_new
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     if both_round is not None:
         carry = dict(ds=ds, z=z, s_abs=s_abs, f_abs=f_abs, f_one=f_one,
-                     changes=changes, m_span=m - m_first, l=l)
+                     changes=changes, m_span=LN2 * (m - m_first),
+                     m_abs=LN2 * torch.maximum(m.abs(), m_first.abs()), l=l)
     return o, carry
 
 
@@ -277,10 +301,11 @@ def flash_attention_wgmma_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool = True
                                 ) -> torch.Tensor:
     """Plain PyTorch twin of the wgmma kernel (any device), bf16 in and out:
-    per key tile of ``WGMMA_BK``, ``s = (q . k) * scale`` in f32 (the scale
-    after the dot product, as the kernel applies it), the -1e30 causal mask,
-    the reference's m / l / alpha recurrence, P rounded to bf16 before it
-    enters both ``l`` and the PV product, the output rounded to bf16."""
+    per key tile of ``wgmma_bk(D)``, scores in log2 units, ``s = (q . k) * c``
+    in f32 (``c = wgmma_scale_log2(D)``, after the dot product, as the
+    kernel applies it), the -1e30 causal mask, the reference's m / l /
+    alpha recurrence with exp2 for exp, P rounded to bf16 before it enters
+    both ``l`` and the PV product, the output rounded to bf16."""
     return _wgmma_recurrence(q, k, v, causal, None)[0].to(torch.bfloat16)
 
 
@@ -302,10 +327,12 @@ def wgmma_twin_and_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(eta (S + |o|) + 2^-7 (1 + 2^-7) (F + F1 |o|)) / (1 - delta)`` (or
     ``2^-8 (1 + 2^-7) (S + |o|)`` in place of the flip term when only the
     twin rounds), plus the two sides' f32 sums on the tensor cores' worst
-    case, ``2 * 17 * (BK / 16) * u * Z / l + (2 Sk / BK + 140) u |o|``."""
+    case, ``2 * 17 * (BK / 16) * u * Z / l + (2 Sk / BK + 2 * 17 * (BK / 16)
+    + 4) u |o|`` with BK = ``wgmma_bk(D)``."""
     o, cr = _wgmma_recurrence(q, k, v, causal, bool(both_round))
     sk = k.shape[1]
-    n_kt = sk // WGMMA_BK
+    bk = wgmma_bk(q.shape[2])
+    n_kt = -(-sk // bk)
     l = cr["l"].double().clamp_min(1e-30)[..., None]
     oa = o.double().abs()
     s_abs, z = cr["s_abs"].double() / l, cr["z"].double() / l
@@ -317,12 +344,16 @@ def wgmma_twin_and_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             / l * oa)
         delta = eta + 2.0 ** -7 * (1 + 2.0 ** -7)
     else:
-        eta = eta + 2.0 ** -21 + 70 * 2.0 ** -23
+        # p's exp2 and subtraction (p >= 2^-100: m - s <= 70 natural), the
+        # twin's rounded product s = (q . k) c (|s| <= |m| + 70)
+        eta = (eta + 2.0 ** -21 + 70 * 2.0 ** -23
+               + 2.0 ** -24 * (cr["m_abs"].double() + 70)[..., None])
         rounding = 2.0 ** -8 * (1 + 2.0 ** -7) * (s_abs + oa)
         delta = eta + 2.0 ** -8 * (1 + 2.0 ** -7)
     weights = (eta * (s_abs + oa) + rounding) / (1 - delta)
-    sums = ((2 * 17 * (WGMMA_BK // 16) * U_SUM * z
-             + (2 * n_kt + 140) * U_SUM * oa) * (1 + delta) / (1 - delta))
+    steps = 17 * (bk // 16)       # a tile's k-steps lose 17 ulps each
+    sums = ((2 * steps * U_SUM * z + (2 * n_kt + 2 * steps + 4) * U_SUM * oa)
+            * (1 + delta) / (1 - delta))
     vmax = v.double().abs().amax(dim=1, keepdim=True)
     tiny = sk * 2.0 ** -99 * (vmax + oa)
     return (o.to(torch.bfloat16),
@@ -423,7 +454,7 @@ def flash_attention_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  bh, sq, k.shape[1], d, int(bool(causal)),
-                 1.0 / (d ** 0.5), stream)
+                 wgmma_scale_log2(d), stream)
     build.check(err, "flash_attention_wgmma")
     build.count_launch(flash_attention_wgmma_cuda)
     return out

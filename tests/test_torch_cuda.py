@@ -4,7 +4,8 @@ adversarial rows, the block kernels also on rows wider than their register
 path), the f32
 ``flash_attention`` kernel within ``f32_twin_bound`` of its twin (plus one
 bf16 ULP in bf16) at every head dim, causal and full, ragged Sq and Sk, the bf16 wgmma kernel within the bound of
-``wgmma_twin_and_bound`` of its twin, the device-based dispatch of the
+``wgmma_twin_and_bound`` of its twin (also where its ring phases and its
+warpgroups' tile counts go wrong first), the device-based dispatch of the
 wrappers (bf16 to the wgmma kernel), and short ``run_fl`` runs (fused, legacy
 and scan engines: scan replays one captured CUDA graph a round, bit-equal to
 fused; the population engine bit-equal to pop_scan; the async sync anchor
@@ -366,6 +367,57 @@ def test_flash_wgmma_vs_twin(card, d, causal):
     twin, bound1 = fa.wgmma_twin_and_bound(q, k, v, causal=causal,
                                            both_round=False)
     assert _wgmma_close(twin, f32, bound1)
+
+
+#: where the wgmma kernel's ring phases, its two warpgroups' key-tile
+#: counts and a last tile of 64 keys past Sk (D 64) go wrong first: 1,
+#: STAGES and STAGES + 1 of the kernel's key tiles (full over one query
+#: tile; causal with Sq = Sk rounded up to a query tile), then (Sq, Sk)
+#: causal and full with Sq < Sk (positions at the top left), Sq > Sk and
+#: Sk an odd multiple of 64
+WGMMA_EDGES = [(n, causal) for n in (1, fa.WGMMA_STAGES, fa.WGMMA_STAGES + 1)
+               for causal in (False, True)] + [
+    ((256, 640), True), ((512, 192), True), ((256, 640), False),
+    ((512, 192), False), ((128, 64), False)]
+
+
+def _edge_shape(shape, d, causal):
+    """(Sq, Sk) of a WGMMA_EDGES case at head dim d."""
+    if isinstance(shape, tuple):
+        return shape
+    sk = shape * fa.wgmma_bk(d)
+    return (-(-sk // 128) * 128 if causal else 128), sk
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,causal", WGMMA_EDGES)
+def test_flash_wgmma_pipeline_edges(card, d, shape, causal):
+    sq, sk = _edge_shape(shape, d, causal)
+    g = torch.Generator(device=card).manual_seed(sq + sk + d)
+    q = torch.randn(2, sq, d, device=card, generator=g).bfloat16()
+    k, v = (torch.randn(2, sk, d, device=card, generator=g).bfloat16()
+            for _ in range(2))
+    w0 = fa.flash_attention_wgmma_cuda.launches
+    got = fa.flash_attention_wgmma_cuda(q, k, v, causal=causal)
+    assert fa.flash_attention_wgmma_cuda.launches == w0 + 1
+    want, bound = fa.wgmma_twin_and_bound(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _wgmma_close(got, want, bound)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_one_key_tile_beside_hundreds(card, d):
+    """Causal over 16384 keys: query tile 0 takes one or two key tiles
+    while the last query tiles take 128 to 256, all in one launch."""
+    g = torch.Generator(device=card).manual_seed(d)
+    q, k, v = (torch.randn(2, 16384, d, device=card, generator=g).bfloat16()
+               for _ in range(3))
+    w0 = fa.flash_attention_wgmma_cuda.launches
+    got = fa.flash_attention_wgmma_cuda(q, k, v)
+    assert fa.flash_attention_wgmma_cuda.launches == w0 + 1
+    want, bound = fa.wgmma_twin_and_bound(q, k, v)
+    torch.cuda.synchronize()
+    assert _wgmma_close(got, want, bound)
 
 
 def test_flash_wgmma_ragged_entry_point(card):

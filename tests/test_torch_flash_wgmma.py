@@ -59,10 +59,12 @@ def _within(got, want, bound):
 
 def _f64_side(q, k, v, causal, skip_tile=None):
     """Another output of the wgmma route's arithmetic: scores, softmax and
-    sums in f64, P rounded to bf16 per key tile of 64 as the kernel rounds
-    it; with ``skip_tile``, that key tile is left out (a faulty kernel)."""
+    sums in f64, P rounded to bf16 per key tile of the kernel's
+    (``fa.wgmma_bk(D)``) as the kernel rounds it; with ``skip_tile``, the
+    key tile holding key 64 * skip_tile is left out (a faulty kernel)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    bk = fa.wgmma_bk(d)
     s = (q.double() @ k.double().transpose(1, 2)) / d ** 0.5
     if causal:
         keep = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
@@ -70,16 +72,16 @@ def _f64_side(q, k, v, causal, skip_tile=None):
     m = torch.full((bh, sq), -1e30, dtype=torch.float64)
     l = torch.zeros((bh, sq), dtype=torch.float64)
     acc = torch.zeros((bh, sq, d), dtype=torch.float64)
-    for k0 in range(0, sk, 64):
-        if k0 // 64 == skip_tile:
+    for k0 in range(0, sk, bk):
+        if skip_tile is not None and k0 <= 64 * skip_tile < k0 + bk:
             continue
-        st = s[:, :, k0:k0 + 64]
+        st = s[:, :, k0:k0 + bk]
         m_new = torch.maximum(m, st.amax(dim=-1))
         p = torch.exp(st - m_new[..., None]).float().to(
             torch.bfloat16).double()
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + 64].double()
+        acc = acc * alpha[..., None] + p @ v[:, k0:k0 + bk].double()
         m = m_new
     return (acc / l[..., None]).to(torch.bfloat16)
 
@@ -131,8 +133,8 @@ def test_wgmma_bound_holds_for_another_side_that_rounds_p(shape, causal):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_wgmma_bound_rejects_a_dropped_key_tile(d):
-    """A kernel that skips one middle key tile (keys 512..575 of 1024)
-    fails the check, in the rows past that tile only."""
+    """A kernel that skips one middle key tile (the one holding key 512 of
+    1024) fails the check, in the rows past that tile only."""
     (_, qt), (_, kt), (_, vt) = _qkv(200 + d, 1, 1024, 1024, d)
     twin, bound = fa.wgmma_twin_and_bound(qt, kt, vt)
     bad = _f64_side(qt, kt, vt, True, skip_tile=8)
