@@ -254,9 +254,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+HERE = os.path.dirname(os.path.abspath(__file__))
+try:      # the package under test: this checkout's, unless one is importable
+    import repro_torch  # noqa: F401
+except ImportError:
+    sys.path.insert(0, os.path.join(HERE, "src"))
+# the card's rates and every kernel's bound counts have one source
+from repro_torch.roofline import kernel_bytes  # noqa: E402
+from repro_torch.roofline.analysis import (HBM_BW, PEAK_FLOPS,  # noqa: E402
+                                           PEAK_FLOPS_F32)
+
 MAIN = (5, 136_724)           # cohort x simulation-MLP parameters
 PRICED = (32, 65_536)
 LEAF = (8, 2048 * 5632)       # stablelm-1.6b MLP matrix as one [C, n] leaf
@@ -536,19 +543,12 @@ def kernel_timings(tf, fm, record):
         th = tf.threshold_find(x, ks)
         th_ef = tf.threshold_find(x, ks, e)
         bits = x.abs().view(torch.int32)
-        elems = c * n
-        # threshold_find as the main path calls it (no EF: bcrs_opwa):
-        # x read once, ks read and thresholds written; at least one
-        # magnitude comparison per element
-        tf_bytes = elems * 4 + c * 4 * 2
-        tf_ops = elems
+        # threshold_find as the main path calls it (no EF: bcrs_opwa)
+        tf_bytes, tf_ops = kernel_bytes.threshold_find_bound(c, n)
+        tf_bound, tf_by = kernel_bytes.bound_ms(tf_bytes, tf_ops)
         rows.append(dict(
             kernel="threshold_find", shape=label, C=c, n=n, variant="x only",
-            bytes=tf_bytes, ops=tf_ops,
-            bound_by=("bytes" if tf_bytes / HBM_BYTES_PER_S
-                      >= tf_ops / F32_OPS_PER_S else "operations"),
-            bound_ms=max(tf_bytes / HBM_BYTES_PER_S,
-                         tf_ops / F32_OPS_PER_S) * 1e3,
+            bytes=tf_bytes, ops=tf_ops, bound_by=tf_by, bound_ms=tf_bound,
             ms=time_ms(lambda: tf.threshold_find(x, ks), reps),
             plain_ms=time_ms(lambda: tf.threshold_find_plain(x, ks),
                              max(3, reps // 5)),
@@ -556,17 +556,12 @@ def kernel_timings(tf, fm, record):
             library_ms=time_ms(lambda: torch.sort(bits, dim=1), reps)))
         for variant, ee, opwa, thr in (("opwa (bcrs_opwa)", None, True, th),
                                        ("ef (eftopk)", e, False, th_ef)):
-            ef = ee is not None
-            # x (+ e) read once, agg (+ residual') written once, th and w
-            fm_bytes = elems * 4 * (1 + 2 * int(ef)) + n * 4 + c * 8
-            fm_ops = elems * (3 + 2 * int(ef))   # [+e], mul, add, [-], gate
-            bound_bytes = fm_bytes / HBM_BYTES_PER_S * 1e3
-            bound_ops = fm_ops / F32_OPS_PER_S * 1e3
+            fm_bytes, fm_ops = kernel_bytes.fused_merge_bound(
+                c, n, ee is not None)
+            fm_bound, fm_by = kernel_bytes.bound_ms(fm_bytes, fm_ops)
             rows.append(dict(
                 kernel="fused_merge", shape=label, C=c, n=n, variant=variant,
-                bytes=fm_bytes, ops=fm_ops,
-                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-                bound_ms=max(bound_bytes, bound_ops),
+                bytes=fm_bytes, ops=fm_ops, bound_by=fm_by, bound_ms=fm_bound,
                 ms=time_ms(lambda: fm.fused_merge(
                     x, thr, w, ee, opwa=opwa, gamma=5.0), reps),
                 plain_ms=time_ms(lambda: fm.fused_merge_plain(
@@ -741,16 +736,13 @@ def block_parity(mods, record):
 
 
 def timing_row(kernel, shape, variant, nbytes, ops, ms, plain_ms, library,
-               library_ms, ops_per_s=F32_OPS_PER_S):
-    """One timing record with its bound: the larger of bytes over the HBM
-    rate and operations over the peak rate of their type (f32 unless
-    given)."""
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / ops_per_s * 1e3
+               library_ms, ops_per_s=PEAK_FLOPS_F32):
+    """One timing record with its bound (``kernel_bytes.bound_ms``): the
+    larger of bytes over the HBM rate and operations over the peak rate of
+    their type (f32 unless given)."""
+    bound, bound_by = kernel_bytes.bound_ms(nbytes, ops, ops_per_s)
     return dict(kernel=kernel, shape=shape, variant=variant, bytes=nbytes,
-                ops=ops,
-                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-                bound_ms=max(bound_bytes, bound_ops), ms=ms,
+                ops=ops, bound_by=bound_by, bound_ms=bound, ms=ms,
                 plain_ms=plain_ms, library=library, library_ms=library_ms)
 
 
@@ -763,21 +755,17 @@ def row_kernel_rows(bt, eu, label, nb, block, reps):
     e = 0.3 * torch.randn(nb, block, device="cuda", generator=g)
     mag = x.abs()
     k = k_for_ratio(block, CR)
-    elems = nb * block
     variant = f"[{nb}, {block}] k={k}"
     topk = "torch.topk(|x|, k, dim=1)"
     few = max(3, reps // 5)
-    # x read once, vals + int8 mask written once (9 B); 4 digit passes of a
-    # shift and a compare, and the mask's compare (9 operations)
     rows = [timing_row(
-        "block_topk", label, variant, elems * 9, elems * 9,
+        "block_topk", label, variant,
+        *kernel_bytes.block_topk_bound(nb, block),
         time_ms(lambda: bt.block_topk(x, k), reps),
         time_ms(lambda: bt.block_topk_plain(x, k), few), topk,
         time_ms(lambda: torch.topk(mag, k, dim=1), reps))]
-    # g, e read once, send, residual' written once (16 B); the same 9
-    # operations, the add and the subtract
     rows.append(timing_row(
-        "ef_update", label, variant, elems * 16, elems * 11,
+        "ef_update", label, variant, *kernel_bytes.ef_update_bound(nb, block),
         time_ms(lambda: eu.ef_update(x, e, k), reps),
         time_ms(lambda: eu.ef_update_plain(x, e, k), few), topk,
         time_ms(lambda: torch.topk(mag, k, dim=1), reps)))
@@ -818,12 +806,9 @@ def block_timings(mods, record, profile=False):
         rows += row_kernel_rows(bt, eu, label, nb, block, reps)
         few = max(3, reps // 5)
         vals, masks, coeffs = combine_case(c, n, 9)
-        # vals (4 B) + mask (1 B) read per client-element, out (4 B) written
-        # per column, coeffs once; multiply, add and count per
-        # client-element, the enlarge multiply per column
         rows.append(timing_row(
             "overlap_combine", label, f"C={c} n={n}",
-            c * n * 5 + n * 4 + c * 4, c * n * 3 + n,
+            *kernel_bytes.overlap_combine_bound(c, n),
             time_ms(lambda: oc.overlap_combine(vals, masks, coeffs, 5.0, 1),
                     reps),
             time_ms(lambda: oc.overlap_combine_plain(vals, masks, coeffs,
@@ -1714,20 +1699,18 @@ def big_leaf_timings(tf, fm):
                         device="cuda")
         w = torch.full((c,), 1.0 / c, device="cuda")
         th = tf.threshold_find(x, ks, e)
-        elems = c * n
-        tf_bytes = elems * 4 * (1 + int(ef)) + c * 4 * 2
         rows.append(timing_row(
-            "threshold_find", label, "ef" if ef else "x only", tf_bytes,
-            elems, time_ms(lambda: tf.threshold_find(x, ks, e), 5),
+            "threshold_find", label, "ef" if ef else "x only",
+            *kernel_bytes.threshold_find_bound(c, n, ef),
+            time_ms(lambda: tf.threshold_find(x, ks, e), 5),
             time_ms(lambda: tf.threshold_find_plain(x, ks, e), 2, 1),
             "torch.kthvalue of the row bit patterns",
             None if ef else time_ms(lambda: torch.kthvalue(
                 x.abs().view(torch.int32), n - int(ks[0]) + 1, dim=1), 2,
                 1)))
-        fm_bytes = elems * 4 * (1 + 2 * int(ef)) + n * 4 + c * 8
         rows.append(timing_row(
             "fused_merge", label, "ef (eftopk)" if ef else "opwa (bcrs_opwa)",
-            fm_bytes, elems * (3 + 2 * int(ef)),
+            *kernel_bytes.fused_merge_bound(c, n, ef),
             time_ms(lambda: fm.fused_merge(x, th, w, e, opwa=not ef,
                                            gamma=3.0), 5),
             time_ms(lambda: fm.fused_merge_plain(x, th, w, e, opwa=not ef,
@@ -3434,23 +3417,14 @@ def flash_case(label, b, sq, sk, h, hkv, d, dtype, causal, seed):
     return q, k, v
 
 
-def causal_pairs(sq, sk, causal):
-    """(query, key) pairs the mask keeps: positions aligned at the top left."""
-    if not causal:
-        return sq * sk
-    n = min(sq, sk)
-    return n * (n + 1) // 2 + max(0, sq - sk) * sk
-
-
 def flash_timing(kernel, label, name, qb, kb, vb, b, h, sq, sk, d, causal,
                  fn, twin):
     """Kernel, twin and SDPA times on the same [BH, S, D] tensors (SDPA on
     their [B, H, S, D] view) beside the bound."""
     big = sk > 8192
-    esize = qb.element_size()
-    nbytes = 4 * b * h * sq * d * esize      # q, k, v read; o written
-    ops_n = 4 * b * h * causal_pairs(sq, sk, causal) * d
-    peak = BF16_OPS_PER_S if qb.dtype == torch.bfloat16 else F32_OPS_PER_S
+    nbytes, ops_n = kernel_bytes.flash_bound(b, h, sq, sk, d,
+                                             qb.element_size(), causal)
+    peak = PEAK_FLOPS if qb.dtype == torch.bfloat16 else PEAK_FLOPS_F32
     q4, k4, v4 = (t.view(b, h, -1, d) for t in (qb, kb, vb))
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -3710,40 +3684,11 @@ def nbytes(tree) -> int:
 
 def decode_bound_ms(model, params, batch, positions, cache_len=None):
     """Bytes a decode step must move at cache length ``positions`` (mean
-    over the timed steps), over the HBM rate: every weight a step reads
-    (all but the embedding table, of which B rows, and the encoder,
-    ``vis_proj`` and the MTP head, which decode never reads; every expert
-    of a MoE layer), the K and V cache up to the position (each layer's
-    window at most) and the new K/V entries (MLA: its latent and rope
-    key), the cross caches read whole (encdec's ``cache_len`` positions, vlm's
-    patches), the recurrent state (hymba's conv history and SSM state,
-    rwkv's token shifts and wkv state), read once and written once, and
-    the logits. Returns (ms, total bytes, state bytes)."""
-    cfg = model.cfg
-    emb = params["embed"]["w"]
-    unread = nbytes(emb) + sum(nbytes(params[k]) for k in ("encoder",
-                                                           "vis_proj", "mtp")
-                               if k in params)
-    weights = nbytes(params) - unread + batch * emb.shape[1] * \
-        emb.element_size()
-    kv = cross = 0
-    if cfg.mla is not None:
-        entry = batch * (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * 2
-        kv = entry * (positions + 1) * cfg.n_layers
-    elif cfg.family != "ssm":
-        entry = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * 2
-        wins = model._window_flags() or [positions + 1] * cfg.n_layers
-        kv = sum(entry * min(positions + 1, w) for w in wins)
-        if cfg.family == "encdec":
-            cross = entry * cache_len * cfg.n_layers
-        elif cfg.family == "vlm":
-            cross = entry * cfg.vision.n_patches * cfg.vision.n_cross_layers
-    one = model.init_cache(batch, 1)
-    state = nbytes(one) - sum(nbytes(one[k]) for k in ("k", "v", "ck", "cv",
-                                                      "mla") if k in one)
-    del one
-    total = weights + kv + cross + 2 * state + batch * model.v_pad * 2
-    return total / HBM_BYTES_PER_S * 1e3, total, state
+    over the timed steps; ``kernel_bytes.decode_step_bytes``), over the HBM
+    rate. Returns (ms, total bytes, state bytes)."""
+    total, state = kernel_bytes.decode_step_bytes(model, params, batch,
+                                                  positions, cache_len)
+    return total / HBM_BW * 1e3, total, state
 
 
 def timed_prefill(kern, zero, model, params, prompt, memory=None):
@@ -5891,6 +5836,186 @@ def layout_phase(kern, zero, record):
     return total
 
 
+# ------------------------------------------------- the dry run on the card
+DRYRUN_ARCH = "stablelm-1.6b"
+DRYRUN_BATCH = (8, 256)       # train_phase's step: B x S, CUT_LAYERS deep
+DRYRUN_TIMED = 3              # uncounted steps timed for the mfu
+#: what the fake run cannot see: the caching allocator rounds a request up
+#: to 512 B and hands out a large block unsplit when less than 1 MiB would
+#: remain (so a live allocation can hold up to 1 MiB + 511 B above its
+#: bytes), and cuBLAS / cuBLASLt take their workspaces (at most 32 MiB and
+#: 1 MiB a handle on sm_90) through the same allocator
+ALLOC_SLACK = (1 << 20) + 511
+CUBLAS_WORKSPACE = (32 << 20) + (1 << 20)
+DRYRUN_CLI = ("--arch", "stablelm-1.6b", "--shape", "train_4k", "--mesh",
+              "single")
+
+
+def dryrun_band(fake_temp: int, allocs_at_peak: int):
+    """The band the card's peak above the arguments must fall in, from the
+    fake run's peak and its live allocations at that peak."""
+    return fake_temp, fake_temp + allocs_at_peak * ALLOC_SLACK + \
+        CUBLAS_WORKSPACE
+
+
+def dryrun_step(out_path: str) -> None:
+    """The dry run's counting core on train_phase's step (``DRYRUN_ARCH``
+    train, B x S = ``DRYRUN_BATCH``, ``CUT_LAYERS`` layers, remat "full",
+    sgd), then that step for real on the card under the same counter;
+    writes both counts, the card's peak above the arguments and the step's
+    time to ``out_path``. Runs in its own process (``--dryrun-step``): the
+    fake process group."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.op_cost import OpCounter
+    b, s = DRYRUN_BATCH
+    shape = ShapeConfig(f"train_{b}x{s}", seq_len=s, global_batch=b,
+                        kind="train")
+    one = make_mesh_from_spec((1, 1), ("data", "model"))
+    ovr = {"n_layers": CUT_LAYERS}
+    t0 = time.perf_counter()
+    fake = dryrun.count_cell(DRYRUN_ARCH, shape, one, "train", ovr, n_micro=1)
+    fake_s = time.perf_counter() - t0
+    fc = fake["counter"]
+    cfg = fake["cell"].meta["cfg"]
+    check(cfg.remat == "full", f"{DRYRUN_ARCH}: remat {cfg.remat!r}")
+    lo, hi = dryrun_band(fc.temp_bytes, fc.allocs_at_peak)
+
+    # the same step on the card: plain tensors, as train_phase runs it
+    cell = build_cell(DRYRUN_ARCH, shape, one, "train", overrides=ovr,
+                      n_micro=1, device="cuda")
+    params = Model(cfg, device="cuda").init(0)
+    opt_state = make_optimizer("sgd", 1e-2).init(params)
+    batch = tr._batch(tr.TrainConfig(batch=b, seq=s, device="cuda"), cfg,
+                      np.random.default_rng(1), "cuda")
+    args = (params, opt_state, batch)
+    out = cell.fn(*args)                      # warm: cuBLAS, caches
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = OpCounter()
+    with real:
+        real.track_args(args)
+        out = cell.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        del out
+    step_s = float(np.median(times))
+    mflops = model_flops(cfg, shape)
+    rec = dict(arch=DRYRUN_ARCH, batch=b, seq=s, n_layers=CUT_LAYERS,
+               remat=cfg.remat, fake_run_s=fake_s,
+               fake_flops=fc.flops, real_flops=real.flops,
+               fake_bytes=fc.bytes, real_bytes=real.bytes,
+               fake_arg_bytes=fc.arg_bytes, real_arg_bytes=real.arg_bytes,
+               fake_temp_bytes=fc.temp_bytes,
+               counter_temp_bytes_on_card=real.temp_bytes,
+               allocs_at_peak=fc.allocs_at_peak,
+               card_peak_above_args=peak, band=[lo, hi],
+               steps_s=times, step_s=step_s, model_flops=mflops,
+               mfu=mflops / (step_s * PEAK_FLOPS),
+               flops_mfu=fc.flops / (step_s * PEAK_FLOPS),
+               fake_memory=fake["memory"])
+    with open(out_path, "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+def start_dryrun_cli(out_dir: str):
+    """``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CLI``'s cell, in
+    the background (it runs on the host, none of it on the card), on one
+    thread at the lowest priority, so the phases beside it keep the host's
+    cores: (process, its output file)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]),
+        CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    log = open(os.path.join(out_dir, "dryrun_cli.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+         "--out", out_dir], stdout=log, stderr=subprocess.STDOUT, env=env,
+        cwd=HERE, preexec_fn=lambda: os.nice(19))
+    return proc, log
+
+
+def dryrun_phase(record):
+    """The dry run held to a real step on the card (``dryrun_step`` in a
+    child process): the FLOPs counted on the fake run equal those counted
+    on the card's run, the card's peak above the arguments within
+    ``dryrun_band``, ``model_flops / (step s * PEAK_FLOPS)`` at most 1.05
+    (printed as the step's mfu)."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = os.path.join(tmp, "step.json")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--dryrun-step", path], capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"dryrun step: exit {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    lo, hi = rec["band"]
+    peak = rec["card_peak_above_args"]
+    print(f"[dryrun step] {rec['arch']} train {rec['batch']}x{rec['seq']} "
+          f"at {rec['n_layers']} layers: FLOPs fake {rec['fake_flops']} "
+          f"card {rec['real_flops']}; peak above the arguments fake "
+          f"{rec['fake_temp_bytes']} card {peak} band [{lo}, {hi}] "
+          f"({rec['allocs_at_peak']} allocations live at the fake peak); "
+          f"step {rec['step_s']:.4f} s, mfu {rec['mfu']:.4f} "
+          f"(counted FLOPs {rec['flops_mfu']:.4f} of the peak); fake run "
+          f"{rec['fake_run_s']:.1f} s")
+    check(rec["fake_flops"] == rec["real_flops"],
+          f"dry-run FLOPs {rec['fake_flops']} == the card's "
+          f"{rec['real_flops']}")
+    check(lo <= peak <= hi, f"card peak {peak} inside the dry run's band "
+                            f"[{lo}, {hi}]")
+    check(rec["mfu"] <= 1.05, f"mfu {rec['mfu']:.4f} <= 1.05")
+    rec["phase_s"] = time.perf_counter() - t0
+    record["dryrun"] = rec
+    return rec
+
+
+def dryrun_cli_result(record, cli):
+    """Wait for ``start_dryrun_cli``'s run (``cli``: its process and log)
+    and print the cell's ``[ok]`` line and roofline."""
+    t0 = time.perf_counter()
+    proc, log = cli
+    proc.wait(timeout=900)
+    log.close()
+    with open(log.name) as f:
+        text = f.read()
+    check(proc.returncode == 0 and "all requested cells passed" in text,
+          f"dryrun {' '.join(DRYRUN_CLI)}: exit {proc.returncode}: "
+          f"{text[-3000:]}")
+    cell = os.path.join(os.path.dirname(log.name), "pod1",
+                        "stablelm-1.6b__train_4k.json")
+    with open(cell) as f:
+        cli_rec = json.load(f)
+    rf = cli_rec["roofline"]
+    print(f"[dryrun {' '.join(DRYRUN_CLI)}] "
+          + [ln for ln in text.splitlines() if ln.startswith("[ok]")][0])
+    print("[dryrun roofline]", json.dumps(rf))
+    record["dryrun_cli"] = dict(
+        memory=cli_rec["memory"], cost=cli_rec["cost"], roofline=rf,
+        compile_s=cli_rec["compile_s"], lower_s=cli_rec["lower_s"],
+        wait_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full record as JSON here")
@@ -5899,13 +6024,16 @@ def main() -> int:
                          "population paths, 3 async flushes, one full-width "
                          "fl_train step, 3 decode steps of each serve path "
                          "and the row kernels at the main shape")
+    ap.add_argument("--dryrun-step", metavar="OUT", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "run needs one CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    if args.dryrun_step:
+        dryrun_step(args.dryrun_step)
+        return 0
     from repro_torch.kernels import block_topk as bt
     from repro_torch.kernels import build
     from repro_torch.kernels import ef_update as eu
@@ -5965,6 +6093,10 @@ def main() -> int:
           and layout_launches["fused_merge"] > 0,
           f"both merge kernels launched in the layout phase: "
           f"{layout_launches}")
+    dryrun_phase(record)
+    # after the layout phase's four ranks, which need the host's cores
+    import tempfile
+    cli = start_dryrun_cli(tempfile.mkdtemp(prefix="chip_smoke_dryrun_cli_"))
     launches = run_paths(kern, record)
     for name, n in layout_launches.items():
         launches[name] += n
@@ -6038,6 +6170,7 @@ def main() -> int:
           f"both merge kernels launched in the moe phase: {moe_launches}")
     check(all(n > 0 for n in launches.values()),
           f"every kernel launched on its path: {launches}")
+    dryrun_cli_result(record, cli)
 
     # one row per kernel and shape; fused_merge's is the main path's OPWA
     main_rows = {r["kernel"]: r for r in rows if r["shape"] == "main"

@@ -239,6 +239,8 @@ def flash_times(src: str) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline import kernel_bytes
+    from repro_torch.roofline.analysis import PEAK_FLOPS
     t0 = time.perf_counter()
     path = build.build(["flash_attention_wgmma"])["flash_attention_wgmma"]
     log = path.with_suffix(".log").read_text()
@@ -273,9 +275,8 @@ def flash_times(src: str) -> dict:
                     q4, k4, v4, is_causal=True)
 
         reps = FLASH_REPS if s <= 8192 else 5
-        ops_n = 4 * b * h * cs.causal_pairs(s, s, True) * d
-        bound_ms = max(4 * b * h * s * d * 2 / cs.HBM_BYTES_PER_S,
-                       ops_n / cs.BF16_OPS_PER_S) * 1e3
+        bound_ms, _ = kernel_bytes.bound_ms(
+            *kernel_bytes.flash_bound(b, h, s, s, d, 2, True), PEAK_FLOPS)
         row = dict(ms=cs.time_ms(kernel, reps),
                    sdpa_ms=cs.time_ms(sdpa, reps), bound_ms=bound_ms,
                    max_abs_err=err, share_of_error_bound=share)

@@ -130,18 +130,21 @@ def _metric_specs(cfg: ModelConfig, extra=()) -> Dict[str, P]:
     return {k: P() for k in names}
 
 
-def build_cell(arch: str, shape_name: str, mesh, step: str = "auto",
+def build_cell(arch: str, shape_name, mesh, step: str = "auto",
                *, optimizer: str = "sgd", lr: float = 1e-2,
                fl_local_steps: int = 2, compressed_cr: float = 0.01,
                overrides: Optional[dict] = None,
                n_micro: Optional[int] = None, device="cuda") -> Cell:
     """The cell's step, abstract inputs and specs on ``mesh`` (abstract or
-    a ``DeviceMesh``), with its rules installed. ``device``: the model's
-    (the step's tensors live there when it runs)."""
+    a ``DeviceMesh``), with its rules installed. ``shape_name``: a key of
+    ``SHAPES`` or a ``ShapeConfig``. ``device``: the model's (the step's
+    tensors live there when it runs)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    shape = SHAPES[shape_name]
+    shape = (SHAPES[shape_name] if isinstance(shape_name, str)
+             else shape_name)
+    shape_name = shape.name
     rules = shd.make_rules(cfg, shape, mesh)
     shd.set_rules(rules)
     model = Model(cfg, device=device)
